@@ -13,8 +13,9 @@ port reuses these modules without copying them:
 Not reachable through this view (their package ``__init__`` imports jax):
 ``tracking``, ``acquisition``, ``ops``, ``parallel``, ``receiver`` and
 ``nav.dispatch.decode_lnav`` (which imports ``receiver``).  The port keeps
-numpy copies of ``tracking.cno``, ``tracking.loop_filters`` and
-``acquisition.resample``, and its own ``receiver.decode_nav_channel``.
+numpy copies of ``tracking.cno``, ``tracking.loop_filters``,
+``tracking.qmboc`` and ``acquisition.resample``, and its own
+``receiver.decode_nav_channel``.
 """
 
 import os as _os

@@ -9,10 +9,12 @@ loop ``track`` stages the record one superblock at a time and reads a
 superblock's outputs back one superblock late, so the host waits on the
 device once per superblock, not once per epoch.
 
-Covered: no-pilot signals on the fast sliced-replica path (``fast_code``),
-both tap modes (``interp_taps``), int8 records.  Pilot banks, the exact
-per-epoch gather path and int16 records raise ``NotImplementedError``
-(ROADMAP.md, Queue A items 7-9).
+Covered: the fast sliced-replica path (``fast_code``) for data-only and
+data+pilot signals, including the long pilot (L2C CL, ``pilot_period_mod``)
+and the B1C WB QMBOC dual pilot bank, both tap modes (``interp_taps``),
+int8 records.  The exact per-epoch gather path (correlator spacing under
+half a sample) and int16 records raise ``NotImplementedError`` (ROADMAP.md,
+Queue A item 9).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..ops.correlator import correlate_bank
 from .cno import cno_vsm, pll_lock_detector
 from .loop_filters import (calc_loop_coef, calc_loop_coef_carr3,
                            calc_loop_coef_exact)
+from .qmboc import calc_weighing_factor
 
 _TWO_PI = 2.0 * np.pi
 # replica table margin [samples]: the reference's value, so both packages
@@ -37,8 +40,8 @@ UP_MARGIN = 1024
 
 @dataclass(frozen=True)
 class TrackParams:
-    """Static tracking parameters (the no-pilot fast-path subset of the
-    reference's TrackParams, same names)."""
+    """Static tracking parameters (the fast-path subset of the reference's
+    TrackParams, same names and defaults)."""
     fs: float
     code_len: int               # chips per code period
     blk: int                    # fixed block size [samples]
@@ -54,6 +57,22 @@ class TrackParams:
     pf3: float = 0.0
     interp_taps: bool = True    # sub-sample replica interpolation; False
                                 # = nearest-sample taps
+    has_pilot: bool = False
+    data_weight: float = 0.5    # data/pilot PLL combining
+    pilot_weight: float = 0.5
+    dll_data_weight: float = 0.5    # data/pilot DLL combining
+    dll_pilot_weight: float = 0.5
+    dll_scale: float = 1.0      # DLL discriminator scale (WB: 1-spacing)
+    pilot_rot: int = 1          # pilot carrier phase in quarter turns vs
+                                # data: 1 = +Q, 0 = +I (L2C CL), 2 = -I,
+                                # 3 = -Q
+    pilot_period_mod: int = 0   # long pilot spanning N code periods (L2C
+                                # CL: 75): its window advances one period
+                                # per epoch, rolling at N
+    has_pilot2: bool = False    # B1C WB QMBOC: a second pilot bank
+    pilot2_rot: int = 2         # bank-2 quarter-turn rotation
+    pilot_w1: float = 1.0       # composite weights of the rotated banks
+    pilot_w2: float = 0.0
 
 
 class ChannelState(NamedTuple):
@@ -129,11 +148,12 @@ def init_channel_state(channels: Sequence, code_freq_basis: float,
         active=torch.ones(c, dtype=torch.bool, device=device))
 
 
-def _epoch_bank(iq, sb_start: int, end_sample: int, tables, wrow,
+def _epoch_bank(iq, sb_start: int, end_sample: int, tables, ptables, wrow,
                 st: ChannelState, p: TrackParams):
     """One epoch for the whole bank: window geometry and carrier steps as
-    [C] tensor ops, the correlator, then ``_close_epoch`` (the counterpart
-    of the reference's ``_epoch_bank_pallas``)."""
+    [C] tensor ops, the correlator (one launch, pilot banks included),
+    then ``_close_epoch`` (the counterpart of the reference's
+    ``_epoch_bank_pallas``)."""
     k = p.k_spacing
     code_phase_step = st.code_freq / p.fs           # f64 [C]
     blksize = torch.ceil((p.code_len - st.rem_code_phase)
@@ -142,6 +162,25 @@ def _epoch_bank(iq, sb_start: int, end_sample: int, tables, wrow,
     shift = torch.floor(shift_f)
     alpha = (shift_f - shift).float()
     start = UP_MARGIN - k + shift.long()
+    pilot = {}
+    if p.has_pilot:
+        pstart, palpha = start, alpha
+        if p.pilot_period_mod > 1:
+            # long pilot (L2C CL): the window advances one code period per
+            # epoch within the full-period table.  The chip -> index map
+            # is the table's, so divide by the BUILD-time step
+            # (code_freq_basis), not the live DLL rate: at period P the
+            # difference grows by P·code_len chips and would walk the
+            # replica off by whole chips within a few periods.
+            pshift_f = ((st.rem_code_phase
+                         + st.pilot_period.double() * p.code_len)
+                        / (st.code_freq_basis / p.fs))
+            pshift = torch.floor(pshift_f)
+            palpha = (pshift_f - pshift).float()
+            pstart = UP_MARGIN - k + pshift.long()
+        pilot = dict(ptable=ptables, pstart=pstart, palpha=palpha,
+                     pilot_rot=p.pilot_rot, pilot2_rot=p.pilot2_rot,
+                     pilot_w1=p.pilot_w1, pilot_w2=p.pilot_w2)
     inc = _TWO_PI * st.carr_freq / p.fs             # f64 rad/sample
     inc_c = st.carr_freq / p.fs                     # f64 cycles/sample
     # the carrier's u·v factors: shi steps u per 128 samples, slo steps v
@@ -152,7 +191,7 @@ def _epoch_bank(iq, sb_start: int, end_sample: int, tables, wrow,
     # 18 Msps record
     out = correlate_bank(iq, st.abs_sample - sb_start, tables, wrow, start,
                          alpha, remc, shi, slo, blksize, k=k, blk=p.blk,
-                         interp_taps=p.interp_taps)
+                         interp_taps=p.interp_taps, **pilot)
     return _close_epoch(st, p, blksize, code_phase_step, inc, end_sample,
                         out)
 
@@ -160,9 +199,12 @@ def _epoch_bank(iq, sb_start: int, end_sample: int, tables, wrow,
 def _close_epoch(st: ChannelState, p: TrackParams, blksize,
                  code_phase_step, inc, end_sample: int, sums):
     """Discriminators, loop filters and state/output packing, all [C]
-    elementwise; ``sums`` is the correlator's [C, 8] output.  Returns the
-    new state and (out_f32 [12, C], out_f64 [4, C], out_i64 [2, C])."""
+    elementwise; ``sums`` is the correlator's [C, 8] output, or [C, 16]
+    with the pilot sums in columns 6-11.  Returns the new state and
+    (out_f32 [12, C], out_f64 [4, C], out_i64 [2, C])."""
     i_e, q_e, i_p, q_p, i_l, q_l = sums[:, :6].unbind(1)
+    if p.has_pilot:
+        pi_e, pq_e, pi_p, pq_p, pi_l, pq_l = sums[:, 6:12].unbind(1)
     # an epoch is valid only while the channel is active and its window
     # stays inside the record
     valid = st.active & (st.abs_sample + p.blk <= end_sample)
@@ -172,7 +214,11 @@ def _close_epoch(st: ChannelState, p: TrackParams, blksize,
 
     # PLL: atan Costas + loop filter (f32 discriminator, f64 filter)
     eps = 1e-12
-    carr_err = (torch.atan(q_p / (i_p + eps)) / _TWO_PI).double()
+    carr_err = torch.atan(q_p / (i_p + eps)) / _TWO_PI
+    if p.has_pilot:
+        pcarr = torch.atan(pq_p / (pi_p + eps)) / _TWO_PI
+        carr_err = p.data_weight * carr_err + p.pilot_weight * pcarr
+    carr_err = carr_err.double()
     if p.pll_order == 3:
         d2_carr = st.d2_carr + carr_err * p.pf3
         d_carr = d2_carr + carr_err * p.pf2 + st.d_carr
@@ -187,11 +233,21 @@ def _close_epoch(st: ChannelState, p: TrackParams, blksize,
     # DLL: E-L envelope + 2nd-order filter
     env_e = torch.sqrt(i_e * i_e + q_e * q_e)
     env_l = torch.sqrt(i_l * i_l + q_l * q_l)
-    code_err = ((env_e - env_l) / (env_e + env_l + eps)).double()
+    code_err = (env_e - env_l) / (env_e + env_l + eps)
+    if p.has_pilot:
+        penv_e = torch.sqrt(pi_e * pi_e + pq_e * pq_e)
+        penv_l = torch.sqrt(pi_l * pi_l + pq_l * pq_l)
+        p_err = (penv_e - penv_l) / (penv_e + penv_l + eps)
+        code_err = p.dll_scale * (p.dll_data_weight * code_err
+                                  + p.dll_pilot_weight * p_err)
+    code_err = code_err.double()
     code_nco = (st.code_nco
                 + (p.tau2_code / p.tau1_code) * (code_err - st.code_err)
                 + code_err * (p.pdi / p.tau1_code))
     code_freq = st.code_freq_basis - code_nco
+    pilot_period = st.pilot_period
+    if p.pilot_period_mod > 1:
+        pilot_period = torch.remainder(pilot_period + 1, p.pilot_period_mod)
 
     # freeze inactive / out-of-data channels
     def keep(new, old):
@@ -209,12 +265,16 @@ def _close_epoch(st: ChannelState, p: TrackParams, blksize,
         d_carr=keep(d_carr, st.d_carr),
         d2_carr=keep(d2_carr, st.d2_carr),
         abs_sample=keep(st.abs_sample + blksize, st.abs_sample),
+        pilot_period=keep(pilot_period, st.pilot_period),
         active=valid)
 
-    # sums columns 6, 7 are the (absent) pilot prompt pair: zeros
+    # rows 6, 7 are the pilot prompt pair: sums columns 8, 9 with a pilot
+    # bank, else the zero columns 6, 7
+    pp = 8 if p.has_pilot else 6
     out_f32 = torch.cat([
-        sums.T, torch.stack([code_err, code_nco, carr_err, carr_nco]
-                            ).float()]) * valid.float()
+        sums[:, :6].T, sums[:, pp:pp + 2].T,
+        torch.stack([code_err, code_nco, carr_err, carr_nco]).float()
+    ]) * valid.float()
     out_f64 = torch.stack([st.carr_freq, st.code_freq, st.rem_code_phase,
                            st.rem_carr_phase])
     out_i64 = torch.stack([st.abs_sample,
@@ -223,16 +283,19 @@ def _close_epoch(st: ChannelState, p: TrackParams, blksize,
 
 
 def track_superblock(iq: torch.Tensor, sb_start: int, tables: torch.Tensor,
+                     pilot_tables: Optional[torch.Tensor],
                      state: ChannelState, params: TrackParams,
                      n_epochs: int, end_sample: Optional[int] = None):
     """Track all channels through ``n_epochs`` code periods.
 
     iq: [2S] int8 interleaved I/Q superblock on the tracking device;
-    sb_start: absolute sample index of iq[0]; tables: [C, L] int8
-    replica tables (``build_replica_tables``); end_sample: absolute end of
-    the record (channels whose next window crosses it freeze), default the
-    end of the superblock.  Returns (new_state, TrackOutputs [n_epochs,
-    C])."""
+    sb_start: absolute sample index of iq[0]; tables / pilot_tables: int8
+    replica tables from ``build_replica_tables`` (pilot_tables None
+    without a pilot bank); end_sample: absolute end of the record
+    (channels whose next window crosses it freeze), default the end of the
+    superblock.  Returns (new_state, TrackOutputs [n_epochs, C])."""
+    if params.has_pilot and pilot_tables is None:
+        raise ValueError("a pilot bank needs pilot_tables")
     if iq.dtype != torch.int8:
         raise NotImplementedError(
             "int16 records are not ported yet (ROADMAP.md Queue A item 9)")
@@ -243,7 +306,7 @@ def track_superblock(iq: torch.Tensor, sb_start: int, tables: torch.Tensor,
     o32, o64, oi = [], [], []
     for _ in range(n_epochs):
         state, (a, b, c) = _epoch_bank(iq, sb_start, end_sample, tables,
-                                       wrow, state, params)
+                                       pilot_tables, wrow, state, params)
         o32.append(a)
         o64.append(b)
         oi.append(c)
@@ -312,29 +375,50 @@ def sample_code_any(elements, code_len_chips, code_freq, fs, n, phase0):
 
 
 def build_replica_tables(cfg, sig: SignalDef, params: TrackParams,
-                         channels: Sequence, dopplers) -> np.ndarray:
-    """Pre-sampled replicas for the fast path: int8 [C, blk + 2*UP_MARGIN]
-    where index m holds the code at chip phase (m - UP_MARGIN)*step_c,
-    step_c the channel's Doppler-aided code step."""
+                         channels: Sequence, dopplers) -> tuple:
+    """Pre-sampled replicas for the fast path, as the reference builds them.
+
+    Returns (code_tables, pilot_tables): code tables int8 [C, L], L = blk +
+    2*UP_MARGIN, where index m holds the code at chip phase
+    (m - UP_MARGIN)*step_c, step_c the channel's Doppler-aided code step.
+    Pilot tables on the same grid: [C, L]; [C, L + (mod-1)*spc_max] for a
+    long pilot spanning mod code periods; [C, 2, L] for the dual bank
+    (BOC(1,1) then BOC(6,1)); None without a pilot bank."""
     m0 = UP_MARGIN
     length = params.blk + 2 * m0
-    tabs = np.empty((len(channels), length), np.int8)
+    c = len(channels)
+    ctabs = np.empty((c, length), np.int8)
+    mod = max(params.pilot_period_mod, 1)
+    spc_max = int(np.ceil(cfg.sampling_freq * sig.code_length_chips
+                          / sig.chip_rate_hz)) + 2
+    plength = length + (mod - 1) * spc_max
+    ptabs = None
+    if params.has_pilot2:
+        ptabs = np.zeros((c, 2, plength), np.int8)
+    elif params.has_pilot:
+        ptabs = np.zeros((c, plength), np.int8)
     for k, ch in enumerate(channels):
         code_freq = sig.chip_rate_hz * (
             1.0 + dopplers[k] / sig.carrier_freq_hz)
         phase0 = -m0 * code_freq / cfg.sampling_freq
         elems = sig.data_code(0 if sig.fdma else int(ch[0]))
-        tabs[k] = sample_code_any(elems, sig.code_length_chips, code_freq,
-                                  cfg.sampling_freq, length, phase0)
-    return tabs
+        ctabs[k] = sample_code_any(elems, sig.code_length_chips, code_freq,
+                                   cfg.sampling_freq, length, phase0)
+        if params.has_pilot2:
+            for b, pfn in enumerate((sig.pilot_code, sig.pilot_code_wb)):
+                ptabs[k, b] = sample_code_any(
+                    pfn(int(ch[0])), sig.code_length_chips, code_freq,
+                    cfg.sampling_freq, plength, phase0)
+        elif params.has_pilot:
+            ptabs[k] = sample_code_any(
+                sig.pilot_code(int(ch[0])), sig.code_length_chips * mod,
+                code_freq, cfg.sampling_freq, plength, phase0)
+    return ctabs, ptabs
 
 
 def make_track_params(cfg, sig: SignalDef) -> TrackParams:
-    """Loop constants and block geometry for ``sig`` under ``cfg``."""
-    if cfg.pilot_trk_flag > 0 and sig.pilot_code is not None:
-        raise NotImplementedError(
-            f"{sig.name}: pilot banks are not ported yet (ROADMAP.md "
-            "Queue A items 7-8)")
+    """Loop constants, block geometry and pilot-bank settings for ``sig``
+    under ``cfg`` (the reference's derivation)."""
     coef = calc_loop_coef_exact if cfg.loop_design == "exact" \
         else lambda bw, z, k, _t: calc_loop_coef(bw, z, k)
     t1c, t2c = coef(cfg.dll_noise_bandwidth,
@@ -350,13 +434,47 @@ def make_track_params(cfg, sig: SignalDef) -> TrackParams:
             f"{sig.name}: correlator spacing under half a sample needs the "
             "per-epoch gather path, not ported yet (ROADMAP.md Queue A "
             "item 9)")
+    has_pilot = cfg.pilot_trk_flag > 0 and sig.pilot_code is not None
+    # data/pilot combining weights: the squared acquisition amplitude
+    # weights (B1C 11/40 + 29/40), else 50/50
+    if len(sig.acq_weights) >= 2:
+        w = np.asarray(sig.acq_weights[:2], np.float64) ** 2
+        wd, wp = (w / w.sum()).tolist()
+    else:
+        wd = wp = 0.5
+    dll_wd, dll_wp = wd, wp
+    dll_scale = 1.0
+    has_pilot2 = False
+    pilot_w1, pilot_w2 = 1.0, 0.0
+    pilot_rot = 0 if sig.pilot_in_phase else 1
+    if cfg.pilot_trk_flag == 2 and sig.pilot_code_wb is not None:
+        # B1C WB QMBOC: BOC(1,1) and BOC(6,1) pilot banks tracked together
+        # and combined as sqrt(29/33)·p11 + sqrt(4/33)·p61 after rotating
+        # both onto +I (the +Q BOC(1,1) by -j, rot 3; the -I BOC(6,1) by
+        # -1, pilot2_rot 2); PLL 1/4 + 3/4, DLL by the RMS-bandwidth
+        # factor with a (1 - spacing) scale
+        factor = calc_weighing_factor(sig.chip_rate_hz, cfg.front_end_bw)
+        wd, wp = 0.25, 0.75
+        dll_wd, dll_wp = factor, 1.0 - factor
+        dll_scale = 1.0 - cfg.dll_correlator_spacing
+        has_pilot2 = True
+        pilot_w1, pilot_w2 = np.sqrt(29.0 / 33.0), np.sqrt(4.0 / 33.0)
+        pilot_rot = 3
     return TrackParams(
         fs=cfg.sampling_freq, code_len=sig.code_length_chips,
         blk=cfg.samples_per_code + cfg.track_block_pad,
         tau1_code=t1c, tau2_code=t2c, tau1_carr=t1p, tau2_carr=t2p,
         pdi=cfg.int_time, k_spacing=max(int(round(k_nominal)), 1),
         pll_order=cfg.pll_order, pf1=pf1, pf2=pf2, pf3=pf3,
-        interp_taps=cfg.interp_taps)
+        interp_taps=cfg.interp_taps,
+        has_pilot=has_pilot, data_weight=wd, pilot_weight=wp,
+        dll_data_weight=dll_wd, dll_pilot_weight=dll_wp,
+        dll_scale=dll_scale, pilot_rot=pilot_rot,
+        pilot_period_mod=(sig.pilot_phase_hypotheses
+                          if has_pilot and sig.pilot_phase_hypotheses > 1
+                          else 0),
+        has_pilot2=has_pilot2, pilot2_rot=(4 - sig.pilot_wb_rot) % 4,
+        pilot_w1=float(pilot_w1), pilot_w2=float(pilot_w2))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -380,7 +498,9 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
     collect results.
 
     samples_iq: int8 interleaved I/Q for the whole record
-    channels: [(prn, acquired_carr_freq, code_phase_samples)]
+    channels: [(prn, acquired_carr_freq, code_phase_samples
+    [, pilot_period])]; the optional 4th element seeds the long pilot's
+    period counter (``init_channel_state``)
     """
     device = torch.device(device)
     params = make_track_params(cfg, sig)
@@ -403,8 +523,10 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
     # Doppler-aided code rates (tables + state init)
     dopplers0 = (np.asarray([ch[1] for ch in channels], np.float64)
                  - cfg.if_freq)
-    tables = torch.from_numpy(build_replica_tables(
-        cfg, sig, params, channels, dopplers0)).to(device)
+    ctabs, ptabs = build_replica_tables(cfg, sig, params, channels,
+                                        dopplers0)
+    tables = torch.from_numpy(ctabs).to(device)
+    ptables = None if ptabs is None else torch.from_numpy(ptabs).to(device)
     state = init_channel_state(channels, sig.chip_rate_hz, device,
                                dopplers=dopplers0,
                                carrier_freq_hz=sig.carrier_freq_hz)
@@ -475,8 +597,8 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
             state = state._replace(active=state.active & torch.from_numpy(
                 ~drop_mask).to(device))
         state, outs = track_superblock(
-            torch.from_numpy(buf).to(device), sb_start, tables, state,
-            params, cur, total_samples)
+            torch.from_numpy(buf).to(device), sb_start, tables, ptables,
+            state, params, cur, total_samples)
         done += cur
         if pending is not None:
             drop_mask = drain(*pending)     # lags one superblock

@@ -20,6 +20,8 @@ from cusdr_tpu_torch import get_config as t_get_config
 from cusdr_tpu_torch.acquisition.pcps import acquire as t_acquire
 from cusdr_tpu_torch.host.signals.defs import get_signal as t_get_signal
 
+from test_torch_threads import few_torch_threads  # noqa: F401 (autouse)
+
 SCENES = {
     "gps_l1ca": (dict(sampling_freq=2.048e6, if_freq=7000.0,
                       acq_satellite_list=tuple(range(1, 33))),

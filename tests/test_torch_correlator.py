@@ -30,6 +30,8 @@ from cusdr_tpu_torch.ops.correlator import (correlate_bank,
                                             correlate_bank_plain)
 from cusdr_tpu_torch.tracking import engine as teng
 
+from test_torch_threads import few_torch_threads  # noqa: F401 (autouse)
+
 
 def _bank_inputs(seed, n_ch, blk, k, table_len, n_samples):
     """Random channel-bank correlator inputs (numpy), f64 carrier steps
@@ -136,7 +138,7 @@ def test_wrapper_takes_plain_version_on_cpu_and_checks_inputs():
     blk, k = 2056, 9
     d = _bank_inputs(9, 3, blk, k, blk + 2048, 3 * 2048)
     args = _port_args(d)
-    before = correlate_bank.launches
+    before = dict(correlate_bank.launches)
     a = correlate_bank(*args, k=k, blk=blk)
     b = correlate_bank_plain(*args, k=k, blk=blk)
     assert torch.equal(a, b)
@@ -171,8 +173,9 @@ def test_track_superblock_matches_reference(interp_taps, pll_order):
     dops = [c[1] - cfg.if_freq for c in channels]
     ctabs, ptabs = jeng.build_replica_tables(cfg, sig, params, channels,
                                              dops)
-    ttabs = teng.build_replica_tables(tcfg, tsig, tparams, channels, dops)
-    assert np.array_equal(ctabs, ttabs)
+    ttabs, tptabs = teng.build_replica_tables(tcfg, tsig, tparams,
+                                              channels, dops)
+    assert np.array_equal(ctabs, ttabs) and tptabs is None
 
     p_pl = dataclasses.replace(params, use_pallas=True,
                                fetch_in_kernel=True, pallas_interpret=True)
@@ -186,8 +189,8 @@ def test_track_superblock_matches_reference(interp_taps, pll_order):
                                      dopplers=dops,
                                      carrier_freq_hz=tsig.carrier_freq_hz)
     st_t, out_t = teng.track_superblock(
-        torch.from_numpy(samples), 0, torch.from_numpy(ttabs), tstate,
-        tparams, n_epochs)
+        torch.from_numpy(samples), 0, torch.from_numpy(ttabs), None,
+        tstate, tparams, n_epochs)
 
     for name in ("i_e", "q_e", "i_p", "q_p", "i_l", "q_l",
                  "pilot_ip", "pilot_qp"):

@@ -1,5 +1,6 @@
 """The CUDA epoch correlator on a card: against its plain PyTorch version,
-alone at the main path's shapes and inside ``track_superblock``.
+alone at the ported paths' shapes (no pilot, pilot, dual pilot) and inside
+``track_superblock`` (gps_l1ca, gal_e5a with its pilot bank).
 
 Every case needs a CUDA card and skips without one.  The file imports no
 jax, so it also runs where jax is absent:
@@ -65,12 +66,12 @@ def _bank_args(dev, seed=11, n_ch=12, blk=18008, k=9, n_samp=4 * 18000):
 def test_kernel_matches_plain_version(cuda, interp_taps):
     blk, k = 18008, 9
     args = _bank_args(cuda, blk=blk, k=k)
-    before = correlate_bank.launches
+    before = correlate_bank.launches["correlate_bank"]
     got = correlate_bank(*args, k=k, blk=blk, interp_taps=interp_taps)
     want = correlate_bank_plain(*args, k=k, blk=blk,
                                 interp_taps=interp_taps)
     torch.cuda.synchronize()
-    assert correlate_bank.launches == before + 1
+    assert correlate_bank.launches["correlate_bank"] == before + 1
     assert got.shape == (12, 8) and torch.isfinite(got).all()
     tol = RTOL_SUM * (want.abs().max().item() + 1.0)
     assert (got - want).abs().max().item() <= tol
@@ -87,7 +88,7 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(cuda):
     odd[0] = args[0][1:-1]          # contiguous, but I/Q pairs misaligned
     with pytest.raises(ValueError, match="even address"):
         correlate_bank(*odd, k=9, blk=18008)
-    before = correlate_bank.launches
+    before = dict(correlate_bank.launches)
     strided = args.copy()
     strided[2] = torch.cat([args[2], args[2]], dim=1)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
@@ -95,12 +96,58 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(cuda):
     assert correlate_bank.launches == before
 
 
+def _pilot_args(dev, n_ch, blk, k, dual, seed=12):
+    """Pilot arguments beside ``_bank_args``: a table longer than the code
+    table (two banks for ``dual``), windows at their own starts, the last
+    two clamped at the table's ends."""
+    rng = np.random.default_rng(seed)
+    p_len = blk + 4096
+    shape = (n_ch, 2, p_len) if dual else (n_ch, p_len)
+    ptable = rng.choice(np.array([-1, 1], np.int8), shape)
+    pstart = rng.integers(0, p_len - blk - 2 * k - 1, n_ch)
+    pstart[-2:] = [p_len - blk, -3]
+    return dict(ptable=torch.as_tensor(ptable, device=dev),
+                pstart=torch.as_tensor(pstart, device=dev),
+                palpha=torch.as_tensor(rng.uniform(0, 1, n_ch),
+                                       dtype=torch.float32, device=dev),
+                pilot_rot=3 if dual else 1, pilot2_rot=2,
+                pilot_w1=float(np.sqrt(29 / 33)) if dual else 1.0,
+                pilot_w2=float(np.sqrt(4 / 33)) if dual else 0.0)
+
+
 @pytest.mark.parametrize("interp_taps", [True, False])
-def test_track_superblock_on_card_matches_cpu(cuda, interp_taps):
-    """12 channels at the gps_l1ca preset's 18 Msps for 12 epochs: one
-    kernel launch per epoch, outputs and loop state as on the CPU."""
-    cfg = get_config("gps_l1ca", interp_taps=interp_taps)
-    sig = get_signal("gps_l1ca")
+@pytest.mark.parametrize("variant,n_ch,blk,k", [
+    ("correlate_bank_pilot", 12, 18008, 1),        # gal_e5a preset
+    ("correlate_bank_pilot", 12, 72008, 5),        # gal_e1c preset
+    ("correlate_bank_dual_pilot", 15, 180008, 1),  # bds_b1c WB
+])
+def test_pilot_kernels_match_plain_version(cuda, variant, n_ch, blk, k,
+                                           interp_taps):
+    args = list(_bank_args(cuda, n_ch=n_ch, blk=blk, k=k, n_samp=4 * blk))
+    args[4] = args[4].clone()
+    args[4][-1] = args[2].shape[1]        # clamped at the code table's end
+    pilot = _pilot_args(cuda, n_ch, blk, k,
+                        variant == "correlate_bank_dual_pilot")
+    before = dict(correlate_bank.launches)
+    got = correlate_bank(*args, k=k, blk=blk, interp_taps=interp_taps,
+                         **pilot)
+    want = correlate_bank_plain(*args, k=k, blk=blk,
+                                interp_taps=interp_taps, **pilot)
+    torch.cuda.synchronize()
+    assert correlate_bank.launches[variant] == before[variant] + 1
+    assert got.shape == (n_ch, 16) and torch.isfinite(got).all()
+    tol = RTOL_SUM * (want.abs().max().item() + 1.0)
+    assert (got - want).abs().max().item() <= tol
+    assert not got[:, 12:].any()
+
+
+@pytest.mark.parametrize("signal,interp_taps", [
+    ("gps_l1ca", True), ("gps_l1ca", False), ("gal_e5a", True)])
+def test_track_superblock_on_card_matches_cpu(cuda, signal, interp_taps):
+    """12 channels at the preset's 18 Msps for 12 epochs: one kernel
+    launch per epoch, outputs and loop state as on the CPU."""
+    cfg = get_config(signal, interp_taps=interp_taps)
+    sig = get_signal(signal)
     params = engine.make_track_params(cfg, sig)
     spc = cfg.samples_per_code
     n_epochs, n_ch = 12, 12
@@ -110,22 +157,28 @@ def test_track_superblock_on_card_matches_cpu(cuda, interp_taps):
     channels = [(1 + c, cfg.if_freq + 300.0 * (c - 6), 101 + 1337 * c)
                 for c in range(n_ch)]
     dops = [ch[1] - cfg.if_freq for ch in channels]
-    tabs = torch.from_numpy(engine.build_replica_tables(
-        cfg, sig, params, channels, dops))
+    tabs, ptabs = (None if t is None else torch.from_numpy(t)
+                   for t in engine.build_replica_tables(
+                       cfg, sig, params, channels, dops))
+    assert (ptabs is not None) == (signal == "gal_e5a")
 
     def run(dev):
         st = engine.init_channel_state(channels, sig.chip_rate_hz, dev,
                                        dopplers=dops,
                                        carrier_freq_hz=sig.carrier_freq_hz)
-        return engine.track_superblock(torch.from_numpy(samples).to(dev), 0,
-                                       tabs.to(dev), st, params, n_epochs)
+        return engine.track_superblock(
+            torch.from_numpy(samples).to(dev), 0, tabs.to(dev),
+            None if ptabs is None else ptabs.to(dev), st, params, n_epochs)
 
     st_c, out_c = run(torch.device("cpu"))
-    before = correlate_bank.launches
+    want = dict(correlate_bank.launches)
+    want["correlate_bank" if ptabs is None else "correlate_bank_pilot"] += \
+        n_epochs
     st_g, out_g = run(cuda)
     torch.cuda.synchronize()
-    assert correlate_bank.launches == before + n_epochs
-    for name in ("i_e", "q_e", "i_p", "q_p", "i_l", "q_l"):
+    assert correlate_bank.launches == want
+    for name in ("i_e", "q_e", "i_p", "q_p", "i_l", "q_l", "pilot_ip",
+                 "pilot_qp"):
         a = getattr(out_c, name).numpy()
         b = getattr(out_g, name).cpu().numpy()
         assert b.shape == (n_epochs, n_ch)

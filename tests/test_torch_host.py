@@ -1,9 +1,10 @@
 """The port's numpy copies of reference modules stay verbatim, and its
 jax-free alias ``cusdr_tpu_torch.host`` serves the reference's own files.
 
-``tracking.cno``, ``tracking.loop_filters`` and ``acquisition.resample`` are
-copied because their reference packages' ``__init__`` imports jax; a copy
-that drifts from its original would make the two packages disagree."""
+``tracking.cno``, ``tracking.loop_filters``, ``tracking.qmboc`` and
+``acquisition.resample`` are copied because their reference packages'
+``__init__`` imports jax; a copy that drifts from its original would make
+the two packages disagree."""
 
 from pathlib import Path
 
@@ -15,6 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 @pytest.mark.parametrize("rel", ["tracking/cno.py",
                                  "tracking/loop_filters.py",
+                                 "tracking/qmboc.py",
                                  "acquisition/resample.py"])
 def test_copy_equals_reference(rel):
     assert (ROOT / "cusdr_tpu_torch" / rel).read_bytes() == \

@@ -10,13 +10,16 @@ from pathlib import Path
 
 import numpy as np
 
+from test_torch_threads import THREADS
+
 ROOT = Path(__file__).resolve().parents[1]
 
 BLOCK_JAX = "import sys; sys.modules['jax'] = None\n"
 
 
 def _run(code: str, *args, timeout=240):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               OMP_NUM_THREADS=str(THREADS))
     res = subprocess.run([sys.executable, "-c", BLOCK_JAX + code, *args],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=timeout)
@@ -38,6 +41,7 @@ def test_host_layers_and_port_modules_import_without_jax():
         for m in ["cusdr_tpu_torch", "cusdr_tpu_torch.receiver",
                   "cusdr_tpu_torch.__main__",
                   "cusdr_tpu_torch.tracking.engine",
+                  "cusdr_tpu_torch.tracking.qmboc",
                   "cusdr_tpu_torch.acquisition.pcps",
                   "cusdr_tpu_torch.ops.correlator"]:
             importlib.import_module(m)

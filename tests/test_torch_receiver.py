@@ -24,6 +24,8 @@ from cusdr_tpu.signals.defs import get_signal
 from cusdr_tpu_torch import get_config as t_get_config
 from cusdr_tpu_torch.receiver import Receiver as TReceiver
 
+from test_torch_threads import few_torch_threads  # noqa: F401 (autouse)
+
 FIX_TOL_M = 0.01
 
 OVER = dict(sampling_freq=2.048e6, if_freq=7000.0,
