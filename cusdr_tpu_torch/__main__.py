@@ -3,6 +3,8 @@
 Examples:
   python -m cusdr_tpu_torch signals
   python -m cusdr_tpu_torch run --signal gps_l1ca --file L1.bin --device cuda
+  python -m cusdr_tpu_torch run --signal gps_l1ca --file L1.bin --device cuda \
+      --time-blocks 8 --handoff-iters 1
 """
 
 from __future__ import annotations
@@ -27,12 +29,17 @@ def main(argv=None):
     p.add_argument("--ms", type=int, help="ms to process")
     p.add_argument("--skip-bytes", type=int, default=0)
     p.add_argument("--prns", help="comma-separated PRN search list")
+    p.add_argument("--time-blocks", type=int, default=None,
+                   help="track this many concurrent time blocks "
+                        "(0/1 = sequential)")
+    p.add_argument("--handoff-iters", type=int, default=None,
+                   help="time-parallel ring state-handoff rounds")
     sub.add_parser("signals", help="list registered signals")
     args = ap.parse_args(argv)
 
-    from .host.config import PRESETS, get_config
+    from .config import PRESETS, get_config
     if args.cmd == "signals":
-        from .host.signals.defs import REGISTRY
+        from .signals.defs import REGISTRY
         for k in sorted(PRESETS):
             sig = REGISTRY[k]
             print(f"{k:10s}  {sig.chip_rate_hz / 1e6:6.3f} Mcps x "
@@ -49,9 +56,12 @@ def main(argv=None):
     if args.prns:
         over["acq_satellite_list"] = tuple(
             int(x) for x in args.prns.split(","))
+    for name in ("time_blocks", "handoff_iters"):
+        if getattr(args, name) is not None:
+            over[name] = getattr(args, name)
     cfg = get_config(args.signal, **over)
 
-    from .host.io.ingest import read_if_file
+    from .io.ingest import read_if_file
     from .receiver import Receiver
     samples = read_if_file(args.file, cfg)
     rx = Receiver(cfg, args.device)

@@ -21,7 +21,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..host.signals.defs import SignalDef, sample_code
+from ..signals.defs import SignalDef, sample_code
 
 
 @dataclass

@@ -1,10 +1,10 @@
 """End-to-end receiver pipeline: acquisition → tracking → nav decode → PVT.
 
-Counterpart of cusdr_tpu/receiver.py for the ported slice.  Acquisition
-and tracking run on the caller's ``device``; nav decode and PVT are the
-reference's numpy host layers (through ``cusdr_tpu_torch.host``).  The
-LNAV decoder lives here because the reference's ``nav.dispatch`` reaches
-it through ``cusdr_tpu.receiver``, which needs jax.
+Counterpart of cusdr_tpu/receiver.py for the ported slices.  Acquisition
+and tracking (sequential, or time-parallel with ``cfg.time_blocks > 1``)
+run on the caller's ``device``; nav decode and PVT are the package's
+numpy layers.  The LNAV decoder lives here, as in the reference, and
+``nav.dispatch`` reaches it from this module.
 """
 
 from __future__ import annotations
@@ -17,15 +17,15 @@ import numpy as np
 
 from . import resolve_device
 from .acquisition.pcps import acquire
-from .host.config import ReceiverConfig
-from .host.constants import SPEED_OF_LIGHT
-from .host.geodesy.transforms import cart2geo, cart2utm, find_utm_zone
-from .host.nav import lnav
-from .host.nav.bits import find_preamble
-from .host.orbits.kepler import sat_pos_kepler
-from .host.pvt.lsq import least_square_pos
-from .host.pvt.pseudorange import calculate_pseudoranges, transmit_times
-from .host.signals.defs import get_signal
+from .config import ReceiverConfig
+from .constants import SPEED_OF_LIGHT
+from .geodesy.transforms import cart2geo, cart2utm, find_utm_zone
+from .nav import lnav
+from .nav.bits import find_preamble
+from .orbits.kepler import sat_pos_kepler
+from .pvt.lsq import least_square_pos
+from .pvt.pseudorange import calculate_pseudoranges, transmit_times
+from .signals.defs import get_signal
 from .tracking.engine import track
 
 
@@ -98,10 +98,10 @@ def decode_nav_channel(track_res, ch: int, cfg, sig):
 
 def sat_pos_for_signal(sig, transmit_time: float, eph: dict):
     """Constellation-appropriate satellite position/clock."""
-    from .host.constants import BDS_GM, BDS_OMEGA_E_DOT
-    from .host.orbits.cnav_kepler import (BDS_A_REF_IGSO_GEO,
-                                          BDS_A_REF_MEO, sat_pos_cnav)
-    from .host.orbits.glonass import sat_pos_glonass
+    from .constants import BDS_GM, BDS_OMEGA_E_DOT
+    from .orbits.cnav_kepler import (BDS_A_REF_IGSO_GEO, BDS_A_REF_MEO,
+                                     sat_pos_cnav)
+    from .orbits.glonass import sat_pos_glonass
     codec = sig.nav_codec
     if codec in ("lnav",):
         return sat_pos_kepler(transmit_time, eph)
@@ -115,7 +115,7 @@ def sat_pos_for_signal(sig, transmit_time: float, eph: dict):
                                tau_c=eph.get("tau_c", 0.0))
     if codec == "bds_d1":
         if eph.get("is_geo"):
-            from .host.orbits.kepler import sat_pos_bds_geo
+            from .orbits.kepler import sat_pos_bds_geo
             return sat_pos_bds_geo(transmit_time, eph, BDS_GM,
                                    BDS_OMEGA_E_DOT)
         return sat_pos_kepler(transmit_time, eph, gm=BDS_GM,
@@ -129,24 +129,16 @@ def sat_pos_for_signal(sig, transmit_time: float, eph: dict):
     raise ValueError(f"no orbit model for codec {codec}")
 
 
-def _decode_channel(track_res, ch, cfg, sig):
-    """Per-codec nav decode: LNAV here, the rest through the reference's
-    dispatch table (whose LNAV adapter would import jax)."""
-    if sig.nav_codec == "lnav":
-        return decode_nav_channel(track_res, ch, cfg, sig)
-    from .host.nav.dispatch import decode_channel
-    return decode_channel(track_res, ch, cfg, sig)
-
-
 def nav_solve(cfg, sig, track_res) -> Optional[NavSolutions]:
     """Decode all channels, then fix every nav_sol_period_ms."""
+    from .nav.dispatch import decode_channel
     n_ch = len(track_res.prns)
     sub_start = np.full(n_ch, -1, np.int64)
     tow = np.full(n_ch, np.inf)
     eph_by_prn: Dict[int, dict] = {}
     active = []
     for ch in range(n_ch):
-        eph, start, t = _decode_channel(track_res, ch, cfg, sig)
+        eph, start, t = decode_channel(track_res, ch, cfg, sig)
         if eph is not None and eph.get("health", 0) == 0:
             eph_by_prn[track_res.prns[ch]] = eph
             sub_start[ch] = start
@@ -173,6 +165,11 @@ def nav_solve(cfg, sig, track_res) -> Optional[NavSolutions]:
     if n_meas < 1:
         return None
 
+    # time-parallel predict mode: mask measurement epochs inside each
+    # block's re-convergence transient (parallel/timeblocks.py)
+    settle = int(getattr(track_res, "settle_epochs", 0) or 0)
+    epb = int(getattr(track_res, "epochs_per_block", 0) or 0)
+
     sol = NavSolutions()
     local_time = np.inf
     sat_elev = np.full(n_ch, np.inf)
@@ -183,6 +180,17 @@ def nav_solve(cfg, sig, track_res) -> Optional[NavSolutions]:
                  and meas_sample < last_sample[ch]]
         if len(chans) < 4:
             continue
+        if settle and epb:
+            # block boundaries differ across channels by up to a code
+            # period, so each channel is tested against its own abs_sample
+            # grid; a channel inside a block's transient drops out of this
+            # measurement epoch only
+            chans = [ch for ch in chans
+                     if (int(np.searchsorted(track_res.abs_sample[ch],
+                                             meas_sample, side="right"))
+                         - 1) % epb >= settle]
+            if len(chans) < 4:
+                continue
         tx = transmit_times(track_res, chans, sub_start, tow,
                             meas_sample, cfg, sig)
         raw_p, local_time = calculate_pseudoranges(tx, chans, local_time,
@@ -268,10 +276,6 @@ class Receiver:
         """samples_iq: interleaved int8 I/Q or, for cfg.file_type == 1, a
         real sample stream."""
         cfg = self.cfg
-        if cfg.time_blocks > 1:
-            raise NotImplementedError(
-                "time-parallel tracking is not ported yet (ROADMAP.md "
-                "Queue A item 6)")
         timings = {}
         t0 = time.perf_counter()
         samples_iq, acq = _acquire_record(cfg, self.sig, samples_iq,
@@ -281,8 +285,22 @@ class Receiver:
         if not channels:
             return ReceiverResults(acq, None, None, [], timings)
         t0 = time.perf_counter()
-        track_res = track(cfg, self.sig, samples_iq, channels, self.device,
-                          n_epochs=n_epochs)
+        if cfg.time_blocks > 1:
+            # time-parallel tracking (parallel/timeblocks.py): n_epochs
+            # rounded down to a block multiple
+            from .parallel.timeblocks import track_time_parallel
+            spc = cfg.samples_per_code
+            total = len(samples_iq) // 2
+            max_phase = max(ch[2] for ch in channels)
+            if n_epochs is None:
+                n_epochs = int((total - max_phase - 2 * spc) // spc)
+            n_epochs = (n_epochs // cfg.time_blocks) * cfg.time_blocks
+            track_res = track_time_parallel(
+                cfg, self.sig, samples_iq, channels, n_epochs,
+                cfg.time_blocks, device=self.device)
+        else:
+            track_res = track(cfg, self.sig, samples_iq, channels,
+                              self.device, n_epochs=n_epochs)
         timings["tracking_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         nav = nav_solve(cfg, self.sig, track_res)

@@ -12,9 +12,12 @@ device once per superblock, not once per epoch.
 Covered: the fast sliced-replica path (``fast_code``) for data-only and
 data+pilot signals, including the long pilot (L2C CL, ``pilot_period_mod``)
 and the B1C WB QMBOC dual pilot bank, both tap modes (``interp_taps``),
-int8 records.  The exact per-epoch gather path (correlator spacing under
-half a sample) and int16 records raise ``NotImplementedError`` (ROADMAP.md,
-Queue A item 9).
+int8 records; windows fetched in the kernel (``fetch_in_kernel``, the
+default) or staged before it; a scalar or per-row record end, so that one
+flat bank can hold rows of several time blocks (parallel/timeblocks.py).
+The exact per-epoch gather path (correlator spacing under half a sample)
+and int16 records raise ``NotImplementedError`` (ROADMAP.md, Queue A
+item 9).
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..host.signals.defs import SignalDef
-from ..ops.correlator import correlate_bank
+from ..signals.defs import SignalDef
+from ..ops.correlator import (correlate_bank, correlate_windows,
+                              stage_windows)
 from .cno import cno_vsm, pll_lock_detector
 from .loop_filters import (calc_loop_coef, calc_loop_coef_carr3,
                            calc_loop_coef_exact)
@@ -73,6 +77,10 @@ class TrackParams:
     pilot2_rot: int = 2         # bank-2 quarter-turn rotation
     pilot_w1: float = 1.0       # composite weights of the rotated banks
     pilot_w2: float = 0.0
+    fetch_in_kernel: bool = True    # the kernel reads its windows from the
+                                    # record and tables at per-row offsets;
+                                    # False = windows staged with tensor
+                                    # indexing before the staged kernel
 
 
 class ChannelState(NamedTuple):
@@ -148,12 +156,12 @@ def init_channel_state(channels: Sequence, code_freq_basis: float,
         active=torch.ones(c, dtype=torch.bool, device=device))
 
 
-def _epoch_bank(iq, sb_start: int, end_sample: int, tables, ptables, wrow,
+def _epoch_bank(iq, sb_start: int, end_sample, tables, ptables, wrow,
                 st: ChannelState, p: TrackParams):
     """One epoch for the whole bank: window geometry and carrier steps as
     [C] tensor ops, the correlator (one launch, pilot banks included),
     then ``_close_epoch`` (the counterpart of the reference's
-    ``_epoch_bank_pallas``)."""
+    ``_epoch_bank_pallas``).  ``end_sample``: int or [C] int64 tensor."""
     k = p.k_spacing
     code_phase_step = st.code_freq / p.fs           # f64 [C]
     blksize = torch.ceil((p.code_len - st.rem_code_phase)
@@ -162,8 +170,9 @@ def _epoch_bank(iq, sb_start: int, end_sample: int, tables, ptables, wrow,
     shift = torch.floor(shift_f)
     alpha = (shift_f - shift).float()
     start = UP_MARGIN - k + shift.long()
-    pilot = {}
+    ptab = pstart = palpha = None
     if p.has_pilot:
+        ptab = ptables
         pstart, palpha = start, alpha
         if p.pilot_period_mod > 1:
             # long pilot (L2C CL): the window advances one code period per
@@ -178,9 +187,8 @@ def _epoch_bank(iq, sb_start: int, end_sample: int, tables, ptables, wrow,
             pshift = torch.floor(pshift_f)
             palpha = (pshift_f - pshift).float()
             pstart = UP_MARGIN - k + pshift.long()
-        pilot = dict(ptable=ptables, pstart=pstart, palpha=palpha,
-                     pilot_rot=p.pilot_rot, pilot2_rot=p.pilot2_rot,
-                     pilot_w1=p.pilot_w1, pilot_w2=p.pilot_w2)
+    rot = dict(pilot_rot=p.pilot_rot, pilot2_rot=p.pilot2_rot,
+               pilot_w1=p.pilot_w1, pilot_w2=p.pilot_w2)
     inc = _TWO_PI * st.carr_freq / p.fs             # f64 rad/sample
     inc_c = st.carr_freq / p.fs                     # f64 cycles/sample
     # the carrier's u·v factors: shi steps u per 128 samples, slo steps v
@@ -189,15 +197,24 @@ def _epoch_bank(iq, sb_start: int, end_sample: int, tables, ptables, wrow,
     remc = torch.remainder(st.rem_carr_phase / _TWO_PI, 1.0).float()
     # i64 window offsets: an i32 offset would overflow past ~115 s of an
     # 18 Msps record
-    out = correlate_bank(iq, st.abs_sample - sb_start, tables, wrow, start,
-                         alpha, remc, shi, slo, blksize, k=k, blk=p.blk,
-                         interp_taps=p.interp_taps, **pilot)
+    off = st.abs_sample - sb_start
+    if p.fetch_in_kernel:
+        out = correlate_bank(iq, off, tables, wrow, start, alpha, remc, shi,
+                             slo, blksize, k=k, blk=p.blk,
+                             interp_taps=p.interp_taps, ptable=ptab,
+                             pstart=pstart, palpha=palpha, **rot)
+    else:
+        siq, wt, wp = stage_windows(iq, off, tables, wrow, start, k=k,
+                                    blk=p.blk, ptable=ptab, pstart=pstart)
+        out = correlate_windows(siq, wt, alpha, remc, shi, slo, blksize,
+                                k=k, interp_taps=p.interp_taps, wp=wp,
+                                palpha=palpha, **rot)
     return _close_epoch(st, p, blksize, code_phase_step, inc, end_sample,
                         out)
 
 
 def _close_epoch(st: ChannelState, p: TrackParams, blksize,
-                 code_phase_step, inc, end_sample: int, sums):
+                 code_phase_step, inc, end_sample, sums):
     """Discriminators, loop filters and state/output packing, all [C]
     elementwise; ``sums`` is the correlator's [C, 8] output, or [C, 16]
     with the pilot sums in columns 6-11.  Returns the new state and
@@ -285,15 +302,18 @@ def _close_epoch(st: ChannelState, p: TrackParams, blksize,
 def track_superblock(iq: torch.Tensor, sb_start: int, tables: torch.Tensor,
                      pilot_tables: Optional[torch.Tensor],
                      state: ChannelState, params: TrackParams,
-                     n_epochs: int, end_sample: Optional[int] = None):
+                     n_epochs: int, end_sample=None):
     """Track all channels through ``n_epochs`` code periods.
 
     iq: [2S] int8 interleaved I/Q superblock on the tracking device;
     sb_start: absolute sample index of iq[0]; tables / pilot_tables: int8
     replica tables from ``build_replica_tables`` (pilot_tables None
     without a pilot bank); end_sample: absolute end of the record
-    (channels whose next window crosses it freeze), default the end of the
-    superblock.  Returns (new_state, TrackOutputs [n_epochs, C])."""
+    (channels whose next window crosses it freeze), an int or a [C] int64
+    tensor on iq's device (rows of time blocks with different buffer ends
+    in one flat bank), default the end of the superblock.  More rows than
+    table rows share the tables by row modulo.  Returns (new_state,
+    TrackOutputs [n_epochs, C])."""
     if params.has_pilot and pilot_tables is None:
         raise ValueError("a pilot bank needs pilot_tables")
     if iq.dtype != torch.int8:

@@ -18,7 +18,7 @@ from cusdr_tpu.io.synth import SynthSV, quantize_iq_int8, synthesize_if
 from cusdr_tpu.signals.defs import get_signal
 from cusdr_tpu_torch import get_config as t_get_config
 from cusdr_tpu_torch.acquisition.pcps import acquire as t_acquire
-from cusdr_tpu_torch.host.signals.defs import get_signal as t_get_signal
+from cusdr_tpu_torch.signals.defs import get_signal as t_get_signal
 
 from test_torch_threads import few_torch_threads  # noqa: F401 (autouse)
 

@@ -25,8 +25,8 @@ from cusdr_tpu.ops.correlator import ALIGN, correlate_bank_hbm, hbm_geometry
 from cusdr_tpu.signals.defs import get_signal
 from cusdr_tpu.tracking import engine as jeng
 from cusdr_tpu_torch import get_config as t_get_config
-from cusdr_tpu_torch.host.signals.defs import get_signal as t_get_signal
-from cusdr_tpu_torch.ops.correlator import (correlate_bank,
+from cusdr_tpu_torch.signals.defs import get_signal as t_get_signal
+from cusdr_tpu_torch.ops.correlator import (LAUNCHES, correlate_bank,
                                             correlate_bank_plain)
 from cusdr_tpu_torch.tracking import engine as teng
 
@@ -138,11 +138,11 @@ def test_wrapper_takes_plain_version_on_cpu_and_checks_inputs():
     blk, k = 2056, 9
     d = _bank_inputs(9, 3, blk, k, blk + 2048, 3 * 2048)
     args = _port_args(d)
-    before = dict(correlate_bank.launches)
+    before = dict(LAUNCHES)
     a = correlate_bank(*args, k=k, blk=blk)
     b = correlate_bank_plain(*args, k=k, blk=blk)
     assert torch.equal(a, b)
-    assert correlate_bank.launches == before     # no kernel on the CPU
+    assert LAUNCHES == before     # no kernel on the CPU
     bad = list(args)
     bad[1] = bad[1].int()
     with pytest.raises(ValueError, match="off"):

@@ -17,8 +17,9 @@ from cusdr_tpu.nav import galileo_nav as gal
 from cusdr_tpu.receiver import Receiver as JReceiver
 from cusdr_tpu.signals.defs import get_signal
 from cusdr_tpu_torch import get_config as t_get_config
-from cusdr_tpu_torch.host.signals.defs import get_signal as t_get_signal
-from cusdr_tpu_torch.receiver import Receiver as TReceiver, _decode_channel
+from cusdr_tpu_torch.signals.defs import get_signal as t_get_signal
+from cusdr_tpu_torch.nav.dispatch import decode_channel
+from cusdr_tpu_torch.receiver import Receiver as TReceiver
 
 from test_torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
@@ -87,8 +88,8 @@ def test_tracking_outputs_agree(runs):
 def test_inav_decode_through_port(runs):
     ref, port = runs
     cfg = t_get_config("gal_e1c", **OVER)
-    eph, start, tow = _decode_channel(port.track, 0, cfg,
-                                      t_get_signal("gal_e1c"))
+    eph, start, tow = decode_channel(port.track, 0, cfg,
+                                     t_get_signal("gal_e1c"))
     assert eph is not None and gal.inav_has_ephemeris(eph)
     for k in ("M_0", "e", "sqrtA", "omega_0", "i_0", "omega", "t_oe",
               "a_f0"):
