@@ -6,8 +6,9 @@
 Phases, each of which fails the run when it fails:
 
 1. environment: the card, its power limit, CUDA and nvcc versions;
-2. build the CUDA correlators from cusdr_tpu_torch/ops/csrc/correlator.cu
-   and correlator_staged.cu (one nvcc each, started together);
+2. build the CUDA kernels from cusdr_tpu_torch/ops/csrc/correlator.cu,
+   correlator_staged.cu and superblock.cu (one nvcc each, started
+   together);
 3. the fetch kernel against its plain PyTorch version at the main path's
    shapes (12 channels, and the 96 rows of eight time blocks, blk = 18 008
    samples, k = 9, both tap modes, some windows clamped at the record's
@@ -22,20 +23,38 @@ Phases, each of which fails the run when it fails:
    12 x 72 008 k = 5, dual pilot at bds_b1c WB 15 x 180 008, both tap
    modes), the phase-ramp and the table carrier (12 and 96 x 18 008), and
    the 500-epoch loops of cusdr_tpu_torch/tools/perf_correlator.py;
-3d. the per-epoch profile of ``track_superblock`` (launches, wall, device
-   and correlator time, idle share) from
+3d. the per-epoch profile of the eager loop ``track_superblock_epochs``
+   (launches, wall, device and correlator time, idle share) and the
+   per-superblock profile of ``track_superblock`` on the superblock kernel
+   (staging, copy to the card, launch, drain) from
    cusdr_tpu_torch/runtime/profiling.py, for the 12-row bank of each path
-   and the 96-row time-parallel bank, fetched and staged;
+   and the 96-row time-parallel bank;
+3e. the superblock kernel (one launch tracks a bank through every epoch of
+   a superblock) against its plain version, the eager epoch loop
+   ``track_superblock_epochs``, on the card, on the records of the scenes
+   below from the SVs' true code phases and carriers: gps_l1ca 12 rows x
+   250 epochs, the 96 rows of eight time blocks with per-row record ends
+   (half the blocks freeze part way), gal_e5a 12 rows x 250 (pilot),
+   bds_b1c WB 15 rows x 100 (dual pilot) and the gps_l2c CL long pilot (3
+   rows x 250 at 2.048 Msps, periods rolling over), each in both tap
+   modes, with one block per row (every field equal to the eager loop's,
+   bit for bit) and with a thread-block cluster per row (within the
+   tolerances stated at TRACK_RTOL below); per case the count of differing
+   elements and the largest difference per field, both times and the
+   card's bound;
 4. the main path at the gps_l1ca preset's full width (18 Msps, 12
    channels, 32 PRNs x 29 Doppler bins x 20 ms): ``Receiver.run`` on four
    seconds of a 12-SV synthetic scene; every SV acquired, every channel in
-   lock, one kernel launch per tracked epoch;
+   lock, one superblock-kernel launch per superblock and no per-epoch
+   launch; then the record's first second again through the eager loop
+   ``track_superblock_epochs`` (one per-epoch launch per epoch), so that
+   both are timed in one call;
 5. PVT: the 40 s, 2.048 Msps, 6-SV scene of tests/test_e2e_l1ca.py through
    ``Receiver.run``; fixes within that test's bounds;
 6. the pilot path at the gal_e5a preset's full width (18 Msps, 12
    channels, 36 PRNs x 21 bins x 15 ms, the 100 ms coherent CS100 fine
    stage) on a 3 s 12-SV scene at 50 dB-Hz: every SV acquired, data and
-   pilot prompts locked, one pilot-kernel launch per epoch;
+   pilot prompts locked, launches as in phase 4 (pilot variants);
 7. the dual pilot bank at the bds_b1c preset in WB mode (pilot_trk_flag=2,
    18 Msps, 15 channels, 62 PRNs x 201 bins x 10 ms) on a 2.5 s 15-SV
    scene, checked as phase 6;
@@ -45,14 +64,15 @@ Phases, each of which fails the run when it fails:
 9. time-parallel tracking at full width: phase 4's record through
    ``Receiver.run`` with ``time_blocks=8`` (a 96-row flat bank, two
    passes): every channel in lock over each block's tail, prompt signs as
-   the sequential run's across every block boundary, launches = epochs per
-   block x passes, all of the fetch kernel; then the same record through
-   the per-block path (staged windows), and the pilot and dual-pilot
-   staged variants on the records of phases 6 and 7 (two blocks each);
+   the sequential run's across every block boundary, one superblock-kernel
+   launch per pass; then the same record through the per-block path
+   (staged windows, one staged-kernel launch per epoch step), and the pilot
+   and dual-pilot staged variants on the records of phases 6 and 7 (two
+   blocks each);
 10. time-parallel PVT: phase 5's scene with ``time_blocks=8``; fixes
    within phase 5's bounds.
 
-The scenes of phases 4-10 are made in five worker processes while the
+The scenes of phases 3e-10 are made in six worker processes while the
 kernel checks of phases 1-3c run, and are all finished before the
 host-bound measurements (the 500-epoch loops, phase 3d) and phase 4
 start.
@@ -100,10 +120,32 @@ KERNELS = {
     "correlate_windows_table": (
         _CSRC + "correlator_staged.cu", "tools/perf_pallas.py:208",
         "correlate_windows_table_kernel"),
+    "track_superblock": (
+        _CSRC + "superblock.cu", "cusdr_tpu/ops/correlator.py:563",
+        "track_superblock_kernel"),
 }
-for _base in ("correlate_bank", "correlate_windows"):
+for _base in ("correlate_bank", "correlate_windows", "track_superblock"):
     for _suffix in ("_pilot", "_dual_pilot"):
         KERNELS[_base + _suffix] = KERNELS[_base]
+# phase 3e: the superblock kernel against the eager loop through a
+# superblock.  With one block per row every operation is the eager loop's,
+# rounded the same way: every field must be equal, bit for bit.  With a
+# cluster the slices of an epoch are added in rank order, so the sums differ
+# from the eager loop's by f32 rounding, which the loops feed back.  Integer
+# and boolean fields (abs_sample, blksize, pilot_period, active) must still
+# be equal.  The f32 fields are held to TRACK_RTOL * (max|eager| + 1), the
+# tolerance of the CPU parity tests for sums added in another order.  The
+# f64 frequencies and filter integrators are held to FREQ_ATOL in Hz,
+# whatever the size of the frequency: a prompt sum off by 1e-4 of itself
+# moves the PLL discriminator by ~1e-5 cycles, and the loop filter's gain
+# of some tens to hundreds of Hz per cycle turns that into ~1e-3 Hz.  The
+# other f64 fields (phases in chips and radians, the discriminators) are
+# held to rtol 1e-6, atol 1e-4, as the CPU parity tests hold them.
+TRACK_RTOL = 2e-4
+STATE_RTOL, STATE_ATOL = 1e-6, 1e-4
+FREQ_ATOL = 2e-3
+FREQ_FIELDS = ("carr_freq", "code_freq", "carr_nco", "code_nco", "d_carr",
+               "d2_carr")
 # the card's published peaks (H100 SXM): device memory and f32 outside the
 # tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -147,7 +189,7 @@ def environment():
 
 
 def build():
-    """Build both kernel sources, one nvcc each, started together."""
+    """Build every kernel source, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
     from cusdr_tpu_torch.ops import correlator
     t0 = time.perf_counter()
@@ -418,6 +460,279 @@ def scene_job(signal, overrides, prns, seconds, cn0_dbhz=45.0,
                  seconds, cn0_dbhz, dopplers=dopplers)
 
 
+# the gps_l2c CL long pilot at the shape of
+# tests/test_torch_pilot_correlator.py's case: 2.048 Msps, three channels
+# (PRN, carrier, code phase, starting CL period), periods 73 and 74 rolling
+# over to 0; 254 code periods of 20 ms
+L2C_CHANNELS = [(1, 7000.0, 101, 73), (2, 7200.0, 138, 5),
+                (3, 7400.0, 175, 74)]
+L2C_OVER = dict(sampling_freq=2.048e6, if_freq=7000.0, pilot_trk_flag=1)
+L2C_EPOCHS = 250
+
+
+def l2c_scene_job():
+    """One SV per channel of ``L2C_CHANNELS`` at its carrier and code phase,
+    46 dB-Hz, its CL code at the channel's starting period; made in a
+    worker process of the scene pool.  Returns (None, int8 I/Q, seconds)."""
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.io.synth import (SynthSV, quantize_iq_int8,
+                                          synthesize_if)
+    from cusdr_tpu_torch.signals.defs import get_signal
+    t0 = time.perf_counter()
+    cfg, sig = get_config("gps_l2c", **L2C_OVER), get_signal("gps_l2c")
+    svs = []
+    for prn, carr, phase, period in L2C_CHANNELS:
+        dop = carr - cfg.if_freq
+        code_freq = sig.chip_rate_hz * (1.0 + dop / sig.carrier_freq_hz)
+        per_samples = sig.code_length_chips * cfg.sampling_freq / code_freq
+        svs.append(SynthSV(prn=prn, code_phase=phase - period * per_samples,
+                           doppler_hz=dop, cn0_dbhz=46.0))
+    iq = quantize_iq_int8(synthesize_if(
+        cfg, sig, svs, num_ms=int((L2C_EPOCHS + 4) * sig.code_period_ms),
+        seed=3))
+    return None, iq, time.perf_counter() - t0
+
+
+def _union_length(starts, lengths):
+    """Samples covered by the union of the windows [start, start + length)."""
+    import numpy as np
+    order = np.argsort(starts, kind="stable")
+    lo, hi = starts[order], (starts + lengths)[order]
+    reach = np.maximum.accumulate(hi)
+    # what each window adds beyond the furthest end before it
+    return int(hi[0] - lo[0]
+               + np.maximum(reach[1:] - np.maximum(lo[1:], reach[:-1]),
+                            0).sum())
+
+
+def superblock_bound(n_pilots, interp, blk, n_rows, n_epochs, table_bytes,
+                     abs_sample, blksize):
+    """The least time the card could take for one superblock launch on this
+    run's data (``abs_sample``, ``blksize``: the [E, C] outputs, the window
+    starts in the record and their lengths, 0 where a row was frozen).
+
+    Bytes, each input read once and each output written once: 2 per record
+    sample that any valid window covers (the rows of a bank read nearly the
+    same stretch of one record, which is one input), the replica tables
+    once (``table_bytes``: they are read again every epoch, but are one
+    input), the state in and out (12 f64, an int64, an int32 and a flag per
+    row, and the int64 record end) and 96 per row and epoch of outputs (12
+    f32, 4 f64, 2 int64).  Operations per valid sample of every row as
+    ``bound`` counts them for the per-epoch kernel, 4 per carrier factor
+    and about 150 for the geometry and the loop closing per valid epoch.
+    Returns (milliseconds, "bytes" or "operations", bytes, operations)."""
+    valid = blksize > 0
+    n_valid = int(blksize.sum())
+    n_valid_epochs = int(valid.sum())
+    banks = 1 + n_pilots
+    n_bytes = (2 * _union_length(abs_sample[valid], blksize[valid])
+               + table_bytes + n_rows * (2 * 109 + 8)
+               + n_epochs * n_rows * 96)
+    ops = (n_valid * (12 + banks * (12 + (9 if interp else 0)))
+           + n_valid_epochs * (4 * ((blk + 127) // 128 + 128) + 150))
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", n_bytes, ops)
+
+
+def _compare_tracks(got, want):
+    """Field by field, the (state, outputs) of a superblock from the kernel
+    against the eager loop's.  Returns (differing elements, largest
+    |difference| over the f32 outputs, {field: largest |difference|} of the
+    fields that differ, the fields beyond their tolerance)."""
+    import torch
+    n_diff, err32, worst, beyond = 0, 0.0, {}, []
+    for kind, g_all, w_all in (("state", got[0], want[0]),
+                               ("out", got[1], want[1])):
+        for name, g, w in zip(g_all._fields, g_all, w_all):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"{kind}.{name}: {g.dtype} "
+                                     f"{tuple(g.shape)} against {w.dtype} "
+                                     f"{tuple(w.shape)}")
+            if g.is_floating_point() and not torch.isfinite(g).all():
+                raise AssertionError(f"{kind}.{name}: not finite")
+            differ = int((g != w).sum().item())
+            if not differ:
+                continue
+            n_diff += differ
+            d = (g.double() - w.double()).abs()
+            worst[f"{kind}.{name}"] = d.max().item()
+            if g.dtype == torch.float32:
+                err32 = max(err32, d.max().item())
+                ok = d.max().item() <= TRACK_RTOL * (w.abs().max().item()
+                                                     + 1.0)
+            elif name in FREQ_FIELDS:
+                ok = d.max().item() <= FREQ_ATOL
+            elif g.dtype == torch.float64:
+                ok = bool((d <= STATE_ATOL + STATE_RTOL * w.abs()).all())
+            else:
+                ok = False
+            if not ok:
+                beyond.append(f"{kind}.{name}")
+    return n_diff, err32, worst, beyond
+
+
+def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
+                     n_blocks=1):
+    """Phase 3e, one bank: the superblock kernel against the eager loop on
+    the first ``n_blocks * n_epochs`` epochs of the record ``iq`` from the
+    channels' given code phases and carriers, in both tap modes, with one
+    block per row and with the wrapper's own cluster size; the card's time
+    per launch (CUDA events over back-to-back launches on the packed state:
+    a trace of launches this few can come back empty), the wall time per
+    ``track_superblock`` call, the eager loop's device time (torch.profiler)
+    and wall time, and the card's bound for this run's data.  With
+    ``n_blocks`` > 1 the bank holds that many time blocks of the channels
+    and every odd block's rows end part way through the superblock."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from cusdr_tpu_torch.ops import correlator as corr
+    from cusdr_tpu_torch.parallel.timeblocks import predict_block_states
+    from cusdr_tpu_torch.tracking import engine
+    dev = torch.device("cuda")
+    spc = cfg.samples_per_code
+    n_samp = min(len(iq) // 2, (n_blocks * n_epochs + 5) * spc)
+    rec = torch.from_numpy(np.ascontiguousarray(iq[:2 * n_samp])).to(dev)
+    dops = np.asarray([ch[1] for ch in channels]) - cfg.if_freq
+    n_ch = len(channels)
+    end = None
+    if n_blocks > 1:
+        st2, starts = predict_block_states(channels, cfg, sig, n_blocks,
+                                           n_epochs, dev)
+        state = engine.ChannelState(*(x.reshape(-1) for x in st2))
+        ends = np.full((n_blocks, n_ch), n_samp, np.int64)
+        for b in range(1, n_blocks, 2):
+            ends[b] = starts[b].min() + (n_epochs // 2
+                                         + n_epochs // 25 * b) * spc
+        end = torch.from_numpy(ends.reshape(-1)).to(dev)
+    else:
+        state = engine.init_channel_state(
+            channels, sig.chip_rate_hz, dev, dopplers=dops,
+            carrier_freq_hz=sig.carrier_freq_hz)
+    n_rows = state.abs_sample.shape[0]
+    n_pilots = corr.SUPERBLOCK_VARIANTS.index(name)
+    rows = {}
+    for interp in (True, False):
+        params = dataclasses.replace(engine.make_track_params(cfg, sig),
+                                     interp_taps=interp)
+        ctabs, ptabs = engine.build_replica_tables(cfg, sig, params,
+                                                   channels, dops)
+        tables = torch.from_numpy(ctabs).to(dev)
+        ptables = None if ptabs is None else torch.from_numpy(ptabs).to(dev)
+        table_bytes = tables.numel() + (0 if ptables is None
+                                        else ptables.numel())
+        args = (rec, 0, tables, ptables, state, params, n_epochs, end)
+
+        def eager():
+            return engine.track_superblock_epochs(*args)
+
+        def kern():
+            return engine.track_superblock(*args)
+
+        packed_state = engine.pack_state(state)
+        end_rows = end if end is not None else torch.full(
+            (n_rows,), n_samp, dtype=torch.int64, device=dev)
+
+        def launch(size):
+            """The wrapper alone on the packed state: back to back, the
+            card's time per call is the kernel's."""
+            new, packed = corr.track_superblock_bank(
+                rec, 0, tables, ptables, *packed_state, end_rows, n_epochs,
+                params, up_margin=engine.UP_MARGIN, cluster=size)
+            return engine._finish_bank(engine.unpack_state(*new), packed)
+
+        want = eager()
+        torch.cuda.synchronize()
+        blksize = want[1].blksize.cpu().numpy()
+        if n_blocks > 1 and not ((blksize[-1] == 0).any()
+                                 and (blksize[-1] > 0).any()):
+            raise AssertionError(f"{name} {label}: the per-row ends froze "
+                                 "no row or every row")
+        tag = (f"[superblock] {name} {label} {n_rows} x {params.blk} x "
+               f"{n_epochs} epochs, interp_taps={interp}")
+        cluster = corr.cluster_size(n_rows)
+        measured = {}
+        for size in sorted({1, cluster}):
+            def fn():
+                return launch(size)
+
+            got = kern() if size == cluster else fn()
+            torch.cuda.synchronize()
+            n_diff, err32, worst, beyond = _compare_tracks(got, want)
+            log(f"{tag}, {size} block(s) per row: {n_diff} elements differ "
+                f"from the eager loop's; largest |difference| per field: "
+                f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} }")
+            if size == 1 and n_diff:
+                raise AssertionError(f"{tag}, one block per row: not the "
+                                     f"eager loop's bits: {worst}")
+            if beyond:
+                raise AssertionError(f"{tag}, {size} block(s) per row: "
+                                     f"beyond the tolerance: {beyond}")
+            measured[size] = (n_diff, err32, _timed(fn, 5))
+        row = dict(err=measured[cluster][1], n_diff=measured[cluster][0],
+                   cluster=cluster, device_ms=measured[cluster][2],
+                   n_diff_one_block=measured[1][0],
+                   device_ms_one_block=measured[1][2])
+        scale = max(getattr(want[1], f).abs().max().item()
+                    for f in ("i_e", "q_e", "i_p", "q_p", "i_l", "q_l"))
+        e1, k1, k2, e2 = (_timed(f, 2) for f in (eager, kern, kern, eager))
+        b_ms, b_by, n_bytes, ops = superblock_bound(
+            n_pilots, interp, params.blk, n_rows, n_epochs, table_bytes,
+            want[1].abs_sample.cpu().numpy(), blksize)
+        row.update(tol=TRACK_RTOL * (scale + 1.0), wrapper_ms=(k1 + k2) / 2,
+                   plain_wrapper_ms=(e1 + e2) / 2,
+                   plain_device_ms=_device_ms(eager, n=1), bound_ms=b_ms,
+                   bound_by=b_by, bytes=n_bytes, ops=ops)
+        rows[interp] = row
+        log(f"{tag}: time on the card per superblock: kernel (CUDA events "
+            f"over back-to-back launches) {_fmt_ms(row['device_ms'])} with "
+            f"{cluster} block(s) per row, "
+            f"{_fmt_ms(row['device_ms_one_block'])} with one; eager loop "
+            f"(torch.profiler device time) "
+            f"{_fmt_ms(row['plain_device_ms'])}; bound {b_ms:.6f} ms by "
+            f"{b_by} ({n_bytes} bytes, {ops} operations)")
+        log(f"{tag}: wall time per call (CUDA events): kernel "
+            f"{row['wrapper_ms']:.3f} ms ({k1:.3f}, {k2:.3f}), eager loop "
+            f"{row['plain_wrapper_ms']:.3f} ms ({e1:.3f}, {e2:.3f})")
+    return dict(name=name, label=label, n_ch=n_rows, blk=params.blk,
+                k=params.k_spacing, rows=rows)
+
+
+def superblock_checks(scenes):
+    """Phase 3e on the scenes' records; returns {kernel: [checks]}, the
+    first check of a kernel at its path's shape."""
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.signals.defs import get_signal
+
+    def truth(cfg, svs):
+        return [(sv.prn, cfg.if_freq + sv.doppler_hz,
+                 int(round(sv.code_phase))) for sv in svs]
+
+    l1, e5a = get_config("gps_l1ca"), get_config("gal_e5a")
+    b1c = get_config("bds_b1c", **B1C_WB)
+    l2c = get_config("gps_l2c", **L2C_OVER)
+    cases = (
+        ("track_superblock", "gps_l1ca", l1, scenes["main"], None, 250, 1),
+        ("track_superblock", "gps_l1ca time_blocks=8, per-row ends", l1,
+         scenes["main"], None, 250, TIME_BLOCKS),
+        ("track_superblock_pilot", "gal_e5a", e5a, scenes["e5a"], None, 250,
+         1),
+        ("track_superblock_pilot", "gps_l2c CL long pilot", l2c,
+         scenes["l2c"], L2C_CHANNELS, L2C_EPOCHS, 1),
+        ("track_superblock_dual_pilot", "bds_b1c WB", b1c, scenes["b1c"],
+         None, 100, 1))
+    checks = {}
+    for name, label, cfg, made, channels, n_epochs, n_blocks in cases:
+        if channels is None:
+            channels = truth(cfg, made[0])
+        checks.setdefault(name, []).append(superblock_check(
+            name, label, cfg, get_signal(cfg.signal), made[1], channels,
+            n_epochs, n_blocks))
+    return checks
+
+
 def check_main(cfg, svs, res, launches=None, tail_epochs=500,
                pilot=False, acq_carr_tol_hz=None):
     """Every simulated SV acquired where it was put (within
@@ -425,7 +740,8 @@ def check_main(cfg, svs, res, launches=None, tail_epochs=500,
     half-chip pull-in, or the one-sample grid of the search where a chip
     spans under two samples), every channel in lock near its true
     frequency (means over the last ``tail_epochs``; the pilot prompt too
-    with ``pilot``), outputs finite, one launch per epoch.  Returns
+    with ``pilot``), outputs finite, ``launches`` (where given) one per
+    superblock of ``cfg.superblock_ms``.  Returns
     (epochs, prompt SNRs, tracked and acquired carrier errors)."""
     import numpy as np
     if acq_carr_tol_hz is None:
@@ -467,10 +783,78 @@ def check_main(cfg, svs, res, launches=None, tail_epochs=500,
             and (np.abs(fr_err) < 5.0).all()):
         raise AssertionError(f"lock lost: status {trk.status}, mean|I_P|"
                              f"/std(Q_P) {snr}, carrier error {fr_err} Hz")
-    if launches is not None and launches != n_ep:
+    if launches is not None and launches != _superblocks(cfg, n_ep):
         raise AssertionError(f"{launches} kernel launches for {n_ep} "
-                             "tracked epochs")
+                             f"tracked epochs in superblocks of "
+                             f"{cfg.superblock_ms} ms")
     return n_ep, snr, fr_err, np.asarray(acq_err)
+
+
+def _superblocks(cfg, n_epochs):
+    """Superblocks ``engine.track`` cuts ``n_epochs`` into."""
+    from cusdr_tpu_torch.signals.defs import get_signal
+    per = max(int(cfg.superblock_ms
+                  / get_signal(cfg.signal).code_period_ms), 1)
+    return -(-n_epochs // per)
+
+
+def eager_track(card, tag, cfg, made, res, variant, n_epochs):
+    """The record's first superblock of ``n_epochs`` epochs again through
+    the eager epoch loop ``engine.track_superblock_epochs`` (the superblock
+    kernel's plain version), step by step as ``engine.track`` runs a
+    superblock (tables, state, staging buffer, copy to the card, tracking,
+    outputs to the host), on the channels ``res`` acquired: one launch of
+    the per-epoch kernel ``variant`` per epoch and none of the superblock
+    kernel; its block sizes and prompt signs are the kernel run's.  Returns
+    the launches of ``variant``."""
+    import numpy as np
+    import torch
+    from cusdr_tpu_torch.ops.correlator import LAUNCHES, reset_launches
+    from cusdr_tpu_torch.signals.defs import get_signal
+    from cusdr_tpu_torch.tracking import engine
+    sig = get_signal(cfg.signal)
+    dev = torch.device("cuda")
+    iq, channels = made[1], res.channels
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    params = engine.make_track_params(cfg, sig)
+    dops = np.asarray([ch[1] for ch in channels], np.float64) - cfg.if_freq
+    ctabs, ptabs = engine.build_replica_tables(cfg, sig, params, channels,
+                                               dops)
+    tables = torch.from_numpy(ctabs).to(dev)
+    ptables = None if ptabs is None else torch.from_numpy(ptabs).to(dev)
+    state = engine.init_channel_state(channels, sig.chip_rate_hz, dev,
+                                      dopplers=dops,
+                                      carrier_freq_hz=sig.carrier_freq_hz)
+    buf_len = (max(ch[2] for ch in channels)
+               + (n_epochs + 4) * cfg.samples_per_code + params.blk)
+    buf = engine.stage_superblock(iq, 0, buf_len)
+    _, outs = engine.track_superblock_epochs(
+        torch.from_numpy(buf).to(dev), 0, tables, ptables, state, params,
+        n_epochs, len(iq) // 2)
+    blksize, i_p = outs.blksize.cpu().numpy().T, outs.i_p.cpu().numpy().T
+    sec = time.perf_counter() - t0
+    _only(tag, dict(LAUNCHES), variant, n_epochs)
+    new = res.track
+    if not np.array_equal(blksize, new.blksize[:, :n_epochs]):
+        raise AssertionError(f"[{tag}] the eager loop's block sizes differ "
+                             "from the superblock kernel's")
+    same = (np.sign(i_p) == np.sign(new.i_p[:, :n_epochs])).mean()
+    if same < 0.999:
+        raise AssertionError(f"[{tag}] prompt signs agree in {same:.4f} of "
+                             "the epochs")
+    rec_s = n_epochs * sig.code_period_ms * 1e-3
+    new_n = new.i_p.shape[1]
+    new_rt = new_n * sig.code_period_ms * 1e-3 / res.timings["tracking_s"]
+    log(f"[{tag}] same call on {card}: eager loop {len(res.channels)} "
+        f"channels x {n_epochs} epochs in {sec:.3f} s = {rec_s / sec:.3f}x "
+        f"real time ({sec / n_epochs * 1e3:.3f} ms per epoch); superblock "
+        f"kernel {new_n} epochs in {res.timings['tracking_s']:.3f} s = "
+        f"{new_rt:.3f}x real time "
+        f"({res.timings['tracking_s'] / new_n * 1e3:.4f} ms per epoch); "
+        f"block sizes equal, prompt signs equal in {same:.5f} of the epochs")
+    return n_epochs
 
 
 def run_path(card, tag, cfg, made, variant, pilot, tail_epochs,
@@ -510,7 +894,7 @@ def run_path(card, tag, cfg, made, variant, pilot, tail_epochs,
         f"{n_ep} epochs of {sig.code_period_ms:g} ms in "
         f"{tm['tracking_s']:.3f} s = {n_samp / tm['tracking_s']:.4g} "
         f"record samples/s ({rec_s / tm['tracking_s']:.3f}x real time), "
-        f"{launches[variant]} {variant} launches")
+        f"{launches[variant]} {variant} launches (one per superblock)")
     for (i, q), x in zip([("I_P", "Q_P"), ("pilot I_P", "pilot Q_P")],
                          snr):
         log(f"[{tag}] mean|{i}|/std({q}) "
@@ -545,7 +929,7 @@ B1C_SCENE = ("bds_b1c", B1C_WB, list(range(19, 34)), 2.5, 45.0,
 def main_path(card: str, made):
     from cusdr_tpu_torch import get_config
     return run_path(card, "main", get_config("gps_l1ca"), made,
-                    "correlate_bank", pilot=False, tail_epochs=500)
+                    "track_superblock", pilot=False, tail_epochs=500)
 
 
 def pilot_path(card: str, made):
@@ -558,7 +942,7 @@ def pilot_path(card: str, made):
     carrier is held to 5 Hz."""
     from cusdr_tpu_torch import get_config
     cfg = get_config("gal_e5a")
-    return run_path(card, "e5a", cfg, made, "correlate_bank_pilot",
+    return run_path(card, "e5a", cfg, made, "track_superblock_pilot",
                     pilot=True, tail_epochs=500,
                     acq_carr_tol_hz=cfg.acq_search_step / 2)
 
@@ -566,7 +950,7 @@ def pilot_path(card: str, made):
 def dual_pilot_path(card: str, made):
     from cusdr_tpu_torch import get_config
     return run_path(card, "b1c-wb", get_config("bds_b1c", **B1C_WB), made,
-                    "correlate_bank_dual_pilot", pilot=True,
+                    "track_superblock_dual_pilot", pilot=True,
                     tail_epochs=100)
 
 
@@ -620,15 +1004,16 @@ def _only(tag, launches, variant, want):
     others = {k: v for k, v in launches.items() if k != variant and v}
     if others or launches[variant] != want:
         raise AssertionError(f"[{tag}] {launches[variant]} {variant} "
-                             f"launches for {want} epoch steps; other "
-                             f"kernels: {others}")
+                             f"launches, {want} expected; other kernels: "
+                             f"{others}")
 
 
 def time_parallel_path(card: str, made, seq_res):
     """Phase 9 on the main path's record: ``Receiver.run`` with
-    ``time_blocks=8`` (flat bank, fetch kernel), then the per-block path
-    (staged kernel) through ``track_time_parallel``.  Returns the launches
-    of (correlate_bank, correlate_windows)."""
+    ``time_blocks=8`` (flat bank: one superblock-kernel launch per pass),
+    then the per-block path (staged kernel, one launch per epoch step)
+    through ``track_time_parallel``.  Returns the launches of
+    (track_superblock, correlate_windows)."""
     import torch
     from cusdr_tpu_torch import get_config
     from cusdr_tpu_torch.ops.correlator import LAUNCHES, reset_launches
@@ -649,7 +1034,7 @@ def time_parallel_path(card: str, made, seq_res):
     if trk.n_blocks != TIME_BLOCKS or n_ep != TIME_BLOCKS * epb:
         raise AssertionError(f"[tp] {trk.n_blocks} blocks x {epb} epochs "
                              f"for {n_ep} epochs")
-    _only("tp", launches, "correlate_bank", epb * passes)
+    _only("tp", launches, "track_superblock", passes)
     check_main(cfg, svs, res, None, tail_epochs=200)
     worst_snr = _block_tails_locked("tp", trk, 200)
     share = _signs_as_sequential("tp", trk, seq_res.track)
@@ -662,8 +1047,8 @@ def time_parallel_path(card: str, made, seq_res):
         f"{len(res.channels)} channels = {TIME_BLOCKS * len(res.channels)} "
         f"rows x {epb} epochs x {passes} passes in {flat_s:.3f} s = "
         f"{rec_s / flat_s:.3f}x real time "
-        f"({flat_s / (epb * passes) * 1e3:.3f} ms per epoch step), "
-        f"{launches['correlate_bank']} correlate_bank launches; lowest "
+        f"({flat_s / (epb * passes) * 1e3:.4f} ms per epoch step), "
+        f"{launches['track_superblock']} track_superblock launches; lowest "
         f"block-tail mean|I_P|/std(Q_P) {worst_snr:.1f}; lowest per-block "
         f"sign agreement with the sequential run {share:.4f}")
 
@@ -691,7 +1076,7 @@ def time_parallel_path(card: str, made, seq_res):
         f"({seq_n} epochs), flat time_blocks={TIME_BLOCKS} "
         f"{rec_s / flat_s:.3f}x ({n_ep} epochs), per-block "
         f"{n_short * 1e-3 / blocks_s:.3f}x ({n_short} epochs)")
-    return launches["correlate_bank"], launches_b["correlate_windows"]
+    return launches["track_superblock"], launches_b["correlate_windows"]
 
 
 def staged_pilot_path(card, tag, cfg, made, res, variant, epb, tail):
@@ -732,8 +1117,8 @@ def pvt_time_parallel(card: str, made):
     cfg = _pvt_config().replace(time_blocks=TIME_BLOCKS)
     reset_launches()
     res = Receiver(cfg, "cuda").run(samples)
-    _only("pvt-tp", dict(LAUNCHES), "correlate_bank",
-          res.track.epochs_per_block * (cfg.handoff_iters + 1))
+    _only("pvt-tp", dict(LAUNCHES), "track_superblock",
+          cfg.handoff_iters + 1)
     if res.track.n_blocks != TIME_BLOCKS or res.track.settle_epochs != 0:
         raise AssertionError("[pvt-tp] not an exactly stitched 8-block run")
     _check_fixes("pvt-tp", card, scn, res, "test_e2e_timeparallel", 60,
@@ -741,12 +1126,35 @@ def pvt_time_parallel(card: str, made):
 
 
 def profiles(card: str):
-    """Phase 3d: the per-epoch profile of ``track_superblock`` for each
-    path's bank (cusdr_tpu_torch/runtime/profiling.py)."""
+    """Phase 3d: the per-epoch profile of the eager loop and the
+    per-superblock profile of the superblock kernel for each path's bank
+    (cusdr_tpu_torch/runtime/profiling.py)."""
     from cusdr_tpu_torch import get_config
-    from cusdr_tpu_torch.runtime.profiling import (format_profile,
-                                                   profile_epochs)
+    from cusdr_tpu_torch.runtime.profiling import (
+        format_profile, format_superblock_profile, profile_epochs,
+        profile_superblock)
     out = []
+    # a superblock as ``track`` cuts it (1000 ms), and one pass of the
+    # 96-row flat bank over phase 9's record
+    for cfg, n_blocks, n_epochs in (
+            (get_config("gps_l1ca"), 1, 1000),
+            (get_config("gps_l1ca"), TIME_BLOCKS, 499),
+            (get_config("gal_e5a"), 1, 1000),
+            (get_config("bds_b1c", **B1C_WB), 1, 100)):
+        p = profile_superblock(cfg, "cuda", n_epochs, n_blocks=n_blocks)
+        log(f"[profile] on {card}: {format_superblock_profile(p)}")
+        out.append(p)
+    # the first bank again in a process of its own: in this one, some
+    # minutes old, a trace of one short launch comes back empty
+    fresh = subprocess.run(
+        [sys.executable, "-m", "cusdr_tpu_torch.runtime.profiling",
+         "--signal", "gps_l1ca", "--epochs", "1000"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    if fresh.returncode != 0:
+        raise AssertionError(f"[profile] the profiling tool failed:\n"
+                             f"{fresh.stdout}\n{fresh.stderr}")
+    log(f"[profile] on {card}, in a process of its own: "
+        f"{fresh.stdout.strip().splitlines()[-1]}")
     for cfg, n_blocks, fetch in (
             (get_config("gps_l1ca"), 1, True),
             (get_config("gps_l1ca"), TIME_BLOCKS, True),
@@ -814,10 +1222,22 @@ def pvt_scene_job():
 
 
 def pvt(card: str, made):
-    from cusdr_tpu_torch.receiver import Receiver
     scn, samples, _ = made
-    res = Receiver(_pvt_config(), "cuda").run(samples)
+    res = _run_sequential("pvt", _pvt_config(), samples, "track_superblock")
     _check_fixes("pvt", card, scn, res, "test_e2e_l1ca", 60, 15.0, 50.0)
+
+
+def _run_sequential(tag, cfg, samples, variant):
+    """``Receiver(cfg).run`` on the card (the default device) with the
+    launch counts set to 0 before it: one launch of ``variant`` per
+    superblock and no other kernel."""
+    from cusdr_tpu_torch.ops.correlator import LAUNCHES, reset_launches
+    from cusdr_tpu_torch.receiver import Receiver
+    reset_launches()
+    res = Receiver(cfg).run(samples)
+    _only(tag, dict(LAUNCHES), variant,
+          _superblocks(cfg, res.track.i_p.shape[1]))
+    return res
 
 
 def _check_fixes(tag, card, scn, res, test, min_fixes, mean_m, max_m):
@@ -910,12 +1330,11 @@ def l5_scene_job():
 
 
 def pvt_pilot(card: str, made):
-    from cusdr_tpu_torch.receiver import Receiver
     cfg = _l5_config()
     scn, samples, made_s = made
     log(f"[pvt-l5] scene: 4 SVs, {len(samples) // 2} samples at "
         f"{cfg.sampling_freq / 1e6:g} Msps, made in {made_s:.1f} s")
-    res = Receiver(cfg, "cuda").run(samples)
+    res = _run_sequential("pvt-l5", cfg, samples, "track_superblock_pilot")
     _check_fixes("pvt-l5", card, scn, res, "test_e2e_l5c", 5, 20.0, 60.0)
 
 
@@ -924,10 +1343,24 @@ def _kernel_json(name, launches, checks):
     ``bound_ms`` at the first shape listed for it (its path's, the preset's
     tap mode), every shape and tap mode under ``shapes``."""
     first = checks[0]["rows"][True]
-    # ms / plain_ms: device time per call (torch.profiler), or the wall
-    # time per wrapper call where the trace held no device time
-    on_device = (first["device_ms"] is not None
-                 and first["plain_device_ms"] is not None)
+    profiler, events = ("torch.profiler device time",
+                        "CUDA events per wrapper call")
+    ms, plain_ms = first["device_ms"], first["plain_device_ms"]
+    if "cluster" in first:
+        # the superblock kernel is timed with CUDA events (a trace of
+        # launches this few can come back empty); the eager loop by its
+        # trace, or by its wall time where that held no device time
+        plain_from = profiler
+        if plain_ms is None:
+            plain_ms, plain_from = first["plain_wrapper_ms"], events
+        ms_from = ("CUDA events over back-to-back launches; plain_ms: "
+                   + plain_from)
+    elif ms is not None and plain_ms is not None:
+        ms_from = profiler
+    else:
+        # a trace held no device time: wall time per wrapper call for both
+        ms, plain_ms, ms_from = (first["wrapper_ms"],
+                                 first["plain_wrapper_ms"], events)
     shapes = [dict(shape=(f"{c['label']}: {c['n_ch']} x {c['blk']}, "
                           f"k={c['k']}, interp_taps={interp}"),
                    max_abs_err=r["err"], tol=r["tol"],
@@ -935,21 +1368,23 @@ def _kernel_json(name, launches, checks):
                    wrapper_ms=r["wrapper_ms"],
                    plain_wrapper_ms=r["plain_wrapper_ms"],
                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                   bytes=r["bytes"], operations=r["ops"])
+                   bytes=r["bytes"], operations=r["ops"],
+                   # phase 3e: blocks per row, elements that differ from
+                   # the eager loop's, and both with one block per row
+                   **{key: r[key] for key in (
+                       "cluster", "n_diff", "n_diff_one_block",
+                       "device_ms_one_block") if key in r})
               for c in checks for interp, r in c["rows"].items()]
     source, replaces, _ = KERNELS[name]
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
-        "ms": first["device_ms"] if on_device else first["wrapper_ms"],
-        "plain_ms": (first["plain_device_ms"] if on_device
-                     else first["plain_wrapper_ms"]),
+        "ms": ms, "plain_ms": plain_ms,
         "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
         # no single PyTorch call computes these sums
         "library_ms": None,
-        "ms_from": ("torch.profiler device time" if on_device
-                    else "CUDA events per wrapper call"),
+        "ms_from": ms_from,
         "wrapper_ms": first["wrapper_ms"],
         "plain_wrapper_ms": first["plain_wrapper_ms"],
         "shapes": shapes}
@@ -967,17 +1402,18 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
-    # the scenes of phases 4-10 (up to a few minutes of numpy each) are made
-    # in worker processes, one each, while phases 1-3 run; all are
-    # finished before phase 4, so no scene work overlaps a receiver run
+    # the scenes of phases 3e-10 (up to a few minutes of numpy each) are
+    # made in worker processes, one each, while phases 1-3c run; all are
+    # finished before phase 3e, so no scene work overlaps a receiver run
     pool = ProcessPoolExecutor(
-        max_workers=5, mp_context=multiprocessing.get_context("spawn"))
+        max_workers=6, mp_context=multiprocessing.get_context("spawn"))
     try:
         jobs = dict(main=pool.submit(scene_job, *MAIN_SCENE),
                     pvt=pool.submit(pvt_scene_job),
                     e5a=pool.submit(scene_job, *E5A_SCENE),
                     b1c=pool.submit(scene_job, *B1C_SCENE),
-                    l5=pool.submit(l5_scene_job))
+                    l5=pool.submit(l5_scene_job),
+                    l2c=pool.submit(l2c_scene_job))
         smi = environment()
         build()
         checks = {}
@@ -986,20 +1422,31 @@ def main() -> int:
         t0 = time.perf_counter()
         scenes = {name: job.result() for name, job in jobs.items()}
         log(f"[scenes] waited {time.perf_counter() - t0:.1f} s for the "
-            "scenes of phases 4-10")
+            "scenes of phases 3e-10")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     # host-bound measurements run with no scene work beside them
     tool = perf_tool(smi)
     launches = {r["name"]: r["loop_launches"] for r in tool}
     profiled = profiles(smi)
+    checks.update(superblock_checks(scenes))
     from cusdr_tpu_torch import get_config
-    launches["correlate_bank"], seq_res = main_path(smi, scenes["main"])
+    b1c_cfg = get_config("bds_b1c", **B1C_WB)
+    launches["track_superblock"], seq_res = main_path(smi, scenes["main"])
+    launches["correlate_bank"] = eager_track(
+        smi, "main", get_config("gps_l1ca"), scenes["main"], seq_res,
+        "correlate_bank", 1000)
     pvt(smi, scenes["pvt"])
-    launches["correlate_bank_pilot"], e5a_res = pilot_path(smi,
-                                                           scenes["e5a"])
-    launches["correlate_bank_dual_pilot"], b1c_res = dual_pilot_path(
+    launches["track_superblock_pilot"], e5a_res = pilot_path(
+        smi, scenes["e5a"])
+    launches["correlate_bank_pilot"] = eager_track(
+        smi, "e5a", get_config("gal_e5a"), scenes["e5a"], e5a_res,
+        "correlate_bank_pilot", 1000)
+    launches["track_superblock_dual_pilot"], b1c_res = dual_pilot_path(
         smi, scenes["b1c"])
+    launches["correlate_bank_dual_pilot"] = eager_track(
+        smi, "b1c-wb", b1c_cfg, scenes["b1c"], b1c_res,
+        "correlate_bank_dual_pilot", 100)
     pvt_pilot(smi, scenes["l5"])
     tp_bank, launches["correlate_windows"] = time_parallel_path(
         smi, scenes["main"], seq_res)
@@ -1007,8 +1454,7 @@ def main() -> int:
         smi, "e5a-blocks", get_config("gal_e5a"), scenes["e5a"], e5a_res,
         "correlate_windows_pilot", epb=500, tail=200)
     launches["correlate_windows_dual_pilot"] = staged_pilot_path(
-        smi, "b1c-wb-blocks", get_config("bds_b1c", **B1C_WB),
-        scenes["b1c"], b1c_res, "correlate_windows_dual_pilot", epb=100,
+        smi, "b1c-wb-blocks", b1c_cfg, scenes["b1c"], b1c_res, "correlate_windows_dual_pilot", epb=100,
         tail=50)
     pvt_time_parallel(smi, scenes["pvt"])
     missing = [name for name in checks if not launches.get(name)]
@@ -1018,7 +1464,9 @@ def main() -> int:
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     kernels = [_kernel_json(name, launches[name], checks[name])
                for name in checks]
-    kernels[0]["launches_time_parallel"] = tp_bank
+    for entry in kernels:
+        if entry["name"] == "track_superblock":
+            entry["launches_time_parallel"] = tp_bank
     print(json.dumps({"perf_correlator": tool, "profiles": profiled}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,12 +5,15 @@ as it is).  It imports ``torch`` and never ``jax`` or the reference
 package: the numpy layers (config, constants, signals, io, nav, orbits,
 pvt, geodesy and the native ingest loader of runtime) are its own verbatim
 copies of the reference's; tracking (sequential and time-parallel),
-acquisition and the receiver pipeline are ported; the epoch correlators are
-CUDA kernels in two sources, ``ops/csrc/correlator.cu`` (windows fetched
-in the kernel) and ``ops/csrc/correlator_staged.cu`` (staged windows).
+acquisition and the receiver pipeline are ported; the correlators are CUDA
+kernels in three sources, ``ops/csrc/superblock.cu`` (one launch tracks a
+channel bank through a superblock of epochs), ``ops/csrc/correlator.cu``
+(one epoch, windows fetched in the kernel) and
+``ops/csrc/correlator_staged.cu`` (one epoch, staged windows).
 
-Every entry point takes an explicit ``device``; nothing picks one for the
-caller.
+The entry points (``Receiver``, ``python -m cusdr_tpu_torch run``) run on
+the card unless the caller names another device; ``"cuda"`` without a card
+raises, and nothing falls back to the CPU.
 """
 
 __version__ = "0.1.0"

@@ -2,9 +2,10 @@
 
 Examples:
   python -m cusdr_tpu_torch signals
-  python -m cusdr_tpu_torch run --signal gps_l1ca --file L1.bin --device cuda
-  python -m cusdr_tpu_torch run --signal gps_l1ca --file L1.bin --device cuda \
+  python -m cusdr_tpu_torch run --signal gps_l1ca --file L1.bin
+  python -m cusdr_tpu_torch run --signal gps_l1ca --file L1.bin \
       --time-blocks 8 --handoff-iters 1
+  python -m cusdr_tpu_torch run --signal gps_l1ca --file L1.bin --device cpu
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ def main(argv=None):
     p.add_argument("--signal", default="gps_l1ca",
                    help="signal key (see `signals`)")
     p.add_argument("--file", required=True, help="IF sample file")
-    p.add_argument("--device", required=True,
-                   help="torch device to run on, e.g. cuda or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda, which "
+                        "raises without a card; cpu must be asked for)")
     p.add_argument("--fs", type=float, help="override sampling freq [Hz]")
     p.add_argument("--if-freq", type=float, help="override IF [Hz]")
     p.add_argument("--ms", type=int, help="ms to process")

@@ -1,7 +1,7 @@
 """Epoch correlators for a channel bank: the CUDA kernels and their plain
 PyTorch versions.
 
-Two kernel sources, one wrapper each per TPU kernel they replace:
+Three kernel sources.  Two hold one wrapper per TPU kernel they replace:
 
 ``csrc/correlator.cu`` — ``correlate_bank`` replaces ``correlate_bank_hbm``
 (cusdr_tpu/ops/correlator.py:563; Pallas call built by ``_build_call_hbm``,
@@ -19,10 +19,19 @@ both tap modes, u·v carrier), ``correlate_windows_ramp`` replaces
 and ``correlate_windows_table`` replaces ``make_table_carrier_kernel``
 (tools/perf_pallas.py:208; carrier from cos/sin basis tables).
 
+``csrc/superblock.cu`` — ``track_superblock_bank`` is the redesign of
+``correlate_bank`` for the card: one launch runs every epoch of a superblock
+for the whole bank, window geometry, correlator sums (the same device code)
+and loop closure included, in the same three variants and both tap modes.
+Its plain version is the eager epoch loop of tracking/engine.py
+(``track_superblock_epochs``), which calls ``correlate_bank`` once per
+epoch; the engine picks between the two by where the record lies.
+
 On a CUDA tensor a wrapper launches its kernel (built with nvcc for sm_90a
 at first use, loaded with ctypes, launched on PyTorch's current stream) or
-raises; on a CPU tensor it runs the ``*_plain`` version beside it.  Each
-launch adds one to ``LAUNCHES[<variant>]``.
+raises; on a CPU tensor it runs the ``*_plain`` version beside it
+(``track_superblock_bank`` takes CUDA tensors only).  Each launch adds one
+to ``LAUNCHES[<variant>]``.
 
 What bounds the kernels on an H100, and what their design does about it:
 per sample the work is an int8 sample read, a few replica reads per bank
@@ -58,30 +67,58 @@ _TWO_PI = float(np.float32(2.0 * np.pi))
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-# kernel sources by library name; both include correlator_common.cuh
-SOURCES = ("correlator", "correlator_staged")
+# kernel sources by library name; all include correlator_common.cuh
+SOURCES = ("correlator", "correlator_staged", "superblock")
 _HEADER = "correlator_common.cuh"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the u·v kernels keep u (2 * ceil(blk / 128) floats) and v (256 floats) in
 # the 48 KB of shared memory a launch gets without opting in (less 2 KB
-# for the reduction's partial sums)
+# for the reduction's partial sums and, in the superblock kernel, the row's
+# state and geometry: 1.5 KB at most together)
 MAX_BLK = 128 * (46 * 1024 // 4 - 256) // 2
 # kernel variants by number of pilot banks, as chip_smoke.py names them
 VARIANTS = ("correlate_bank", "correlate_bank_pilot",
             "correlate_bank_dual_pilot")
 WINDOW_VARIANTS = ("correlate_windows", "correlate_windows_pilot",
                    "correlate_windows_dual_pilot")
+SUPERBLOCK_VARIANTS = ("track_superblock", "track_superblock_pilot",
+                       "track_superblock_dual_pilot")
+# streaming multiprocessors of the H100: a bank takes as many thread blocks
+# per channel row (a cluster, at most 8) as fit on the card at once
+N_SMS = 132
 # kernel launches since the last reset, by variant (chip_smoke.py reads them
 # to show each path ran on its kernel)
 LAUNCHES = dict.fromkeys(VARIANTS + WINDOW_VARIANTS + (
-    "correlate_windows_ramp", "correlate_windows_table"), 0)
+    "correlate_windows_ramp", "correlate_windows_table")
+    + SUPERBLOCK_VARIANTS, 0)
 
 
 def reset_launches() -> None:
     """Set every launch count to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+class SuperblockArgs(ctypes.Structure):
+    """Arguments of one ``track_superblock_launch``: the structure of the
+    same name in csrc/superblock.cu, field by field."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in (
+            "iq", "table", "ptable", "state_in", "abs_in", "pper_in",
+            "active_in", "end_sample", "state_out", "abs_out", "pper_out",
+            "active_out", "o32", "o64", "oi")]
+        + [(n, ctypes.c_int64) for n in (
+            "sb_start", "n_samples", "table_len", "ptable_len")]
+        + [(n, ctypes.c_double) for n in (
+            "inv_fs", "code_len", "two_pi", "inv_two_pi", "carr_a", "carr_b",
+            "code_a", "code_b", "pf1", "pf2", "pf3")]
+        + [(n, ctypes.c_float) for n in (
+            "inv_two_pi_f", "eps", "data_weight", "pilot_weight",
+            "dll_data_weight", "dll_pilot_weight", "dll_scale", "w1", "w2")]
+        + [(n, ctypes.c_int) for n in (
+            "n_rows", "n_table_rows", "n_epochs", "blk", "k", "up_margin",
+            "pll_order", "pilot_rot", "pilot2_rot", "pilot_period_mod")])
 
 
 def _nvcc() -> str:
@@ -103,6 +140,11 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
             i32, i32, i32, i64, i32,
             p, p, p, i64, i32, i32, i32, f32, f32,
             p]}
+    elif name == "superblock":
+        signatures = {
+            "track_superblock_args_size": [],
+            "track_superblock_launch": [
+                ctypes.POINTER(SuperblockArgs), i32, i32, i32, p]}
     else:
         signatures = {
             "correlate_windows_launch": [
@@ -144,6 +186,9 @@ def load_library(name: str = "correlator") -> ctypes.CDLL:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     _declare(lib, name)
+    if name == "superblock" and (lib.track_superblock_args_size()
+                                 != ctypes.sizeof(SuperblockArgs)):
+        raise RuntimeError("SuperblockArgs differs from csrc/superblock.cu's")
     return lib
 
 
@@ -593,3 +638,131 @@ def correlate_windows_table(siq, wt, tc, ts, alpha, c0, s0, bsz, *,
         torch.cuda.current_stream(siq.device).cuda_stream)
     _launched("correlate_windows_table", rc)
     return out
+
+
+# --------------------------------------------------------------------------
+# One launch per superblock
+# --------------------------------------------------------------------------
+
+def cluster_size(n_rows: int) -> int:
+    """Thread blocks per channel row of the superblock kernel: the largest
+    of 8, 4, 2 that keeps the bank within the card's SMs, else 1."""
+    for size in (8, 4, 2):
+        if n_rows * size <= N_SMS:
+            return size
+    return 1
+
+
+def track_superblock_bank(iq, sb_start: int, table, ptable, state_f64,
+                          abs_sample, pilot_period, active, end_sample,
+                          n_epochs: int, params, *, up_margin: int,
+                          cluster=None):
+    """Track a channel bank through ``n_epochs`` epochs in one kernel
+    launch (csrc/superblock.cu).  CUDA tensors only: a build or launch
+    failure raises, and on the CPU the caller runs the eager epoch loop.
+
+    iq: [2S] int8 interleaved I/Q record, sample 0 at absolute index
+    ``sb_start``; table: [R, L] int8 replica tables, ptable: None, [R, Lp]
+    or [R, 2, Lp] pilot tables (row c reads table row c % R); state_f64:
+    [12, C] f64, ``ChannelState``'s f64 fields in order; abs_sample [C]
+    int64, pilot_period [C] int32, active [C] bool; end_sample: [C] int64
+    absolute end of each row's record; params: the engine's
+    ``TrackParams`` (block size, spacing, tap mode, loop constants and
+    pilot settings, read by name); up_margin: the tables' front margin
+    [samples].  ``cluster``: thread blocks per row (1, 2, 4, 8), default
+    ``cluster_size(C)``.
+
+    Returns (state_f64, abs_sample, pilot_period, active) after the last
+    epoch and the output stacks (o32 [E, 12, C] f32, o64 [E, 4, C] f64,
+    oi [E, 2, C] int64), laid out as the eager loop's."""
+    dev = iq.device
+    blk, k = params.blk, params.k_spacing
+    if dev.type != "cuda":
+        raise ValueError(f"the superblock kernel takes CUDA tensors, iq is "
+                         f"on {dev}")
+    banks = (table,) if ptable is None else (table, ptable)
+    _on_card("track_superblock", iq, *banks)
+    if iq.dtype != torch.int8 or iq.dim() != 1 or iq.numel() % 2:
+        raise ValueError("iq must be a 1-D int8 tensor of interleaved I/Q")
+    if table.dtype != torch.int8 or table.dim() != 2:
+        raise ValueError("table must be a 2-D int8 tensor [R, L]")
+    if state_f64.dim() != 2 or state_f64.shape[0] != 12 \
+            or state_f64.dtype != torch.float64:
+        raise ValueError("state_f64 must be f64 [12, C]")
+    c = state_f64.shape[1]
+    _check_vectors(dev, c, (
+        ("abs_sample", abs_sample, torch.int64),
+        ("pilot_period", pilot_period, torch.int32),
+        ("active", active, torch.bool),
+        ("end_sample", end_sample, torch.int64)))
+    if state_f64.device != dev or any(x.device != dev for x in banks):
+        raise ValueError(f"state and tables must be on {dev}")
+    if n_epochs < 1 or k < 1:
+        raise ValueError(f"n_epochs={n_epochs} and k={k} must be >= 1")
+    if blk > MAX_BLK:
+        raise ValueError(f"blk={blk} exceeds the kernel's {MAX_BLK}: its "
+                         "carrier factors would overflow 48 KB of shared "
+                         "memory")
+    win = blk + 2 * k + 1
+    if iq.numel() // 2 < blk or table.shape[1] < win:
+        raise ValueError("record or replica table shorter than one window")
+    n_pilots, p_len = 0, 0
+    if ptable is not None:
+        if (ptable.dtype != torch.int8 or ptable.dim() not in (2, 3)
+                or (ptable.dim() == 3 and ptable.shape[1] != 2)
+                or ptable.shape[0] != table.shape[0]
+                or ptable.shape[-1] < win):
+            raise ValueError("ptable must be int8 [R, Lp] or [R, 2, Lp], "
+                             "R as table's, Lp at least one window")
+        n_pilots = ptable.dim() - 1
+        p_len = int(ptable.shape[-1])
+    if cluster is None:
+        cluster = cluster_size(c)
+    state_f64, abs_sample, pilot_period, active, end_sample = (
+        x.contiguous() for x in (state_f64, abs_sample, pilot_period,
+                                 active, end_sample))
+    new_f64 = torch.empty_like(state_f64)
+    new_abs = torch.empty_like(abs_sample)
+    new_pper = torch.empty_like(pilot_period)
+    new_active = torch.empty_like(active)
+    o32 = torch.empty((n_epochs, 12, c), dtype=torch.float32, device=dev)
+    o64 = torch.empty((n_epochs, 4, c), dtype=torch.float64, device=dev)
+    oi = torch.empty((n_epochs, 2, c), dtype=torch.int64, device=dev)
+    two_pi = 2.0 * np.pi
+    args = SuperblockArgs(
+        iq=iq.data_ptr(), table=table.data_ptr(),
+        ptable=None if ptable is None else ptable.data_ptr(),
+        state_in=state_f64.data_ptr(), abs_in=abs_sample.data_ptr(),
+        pper_in=pilot_period.data_ptr(), active_in=active.data_ptr(),
+        end_sample=end_sample.data_ptr(), state_out=new_f64.data_ptr(),
+        abs_out=new_abs.data_ptr(), pper_out=new_pper.data_ptr(),
+        active_out=new_active.data_ptr(), o32=o32.data_ptr(),
+        o64=o64.data_ptr(), oi=oi.data_ptr(),
+        sb_start=int(sb_start), n_samples=iq.numel() // 2,
+        table_len=int(table.shape[1]), ptable_len=p_len,
+        # the eager loop divides tensors by these host scalars, which
+        # PyTorch computes on the card as a product with the reciprocal
+        inv_fs=1.0 / params.fs, code_len=float(params.code_len),
+        two_pi=two_pi, inv_two_pi=1.0 / two_pi,
+        carr_a=params.tau2_carr / params.tau1_carr,
+        carr_b=params.pdi / params.tau1_carr,
+        code_a=params.tau2_code / params.tau1_code,
+        code_b=params.pdi / params.tau1_code,
+        pf1=params.pf1, pf2=params.pf2, pf3=params.pf3,
+        inv_two_pi_f=float(np.float32(1.0) / np.float32(two_pi)),
+        eps=1e-12,
+        data_weight=params.data_weight, pilot_weight=params.pilot_weight,
+        dll_data_weight=params.dll_data_weight,
+        dll_pilot_weight=params.dll_pilot_weight,
+        dll_scale=params.dll_scale, w1=params.pilot_w1, w2=params.pilot_w2,
+        n_rows=c, n_table_rows=int(table.shape[0]), n_epochs=int(n_epochs),
+        blk=int(blk), k=int(k), up_margin=int(up_margin),
+        pll_order=int(params.pll_order), pilot_rot=int(params.pilot_rot) % 4,
+        pilot2_rot=int(params.pilot2_rot) % 4,
+        pilot_period_mod=int(params.pilot_period_mod))
+    rc = load_library("superblock").track_superblock_launch(
+        ctypes.byref(args), int(bool(params.interp_taps)), n_pilots,
+        int(cluster),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _launched(SUPERBLOCK_VARIANTS[n_pilots], rc)
+    return (new_f64, new_abs, new_pper, new_active), (o32, o64, oi)

@@ -40,8 +40,10 @@
 // busy, and each thread walks blk / 512 samples in sequence (352 at B1C).
 // The design answers with wide blocks (512 threads, each sample touched once,
 // coalesced 2-byte record loads), 6-18 register accumulators and no global
-// scratch; splitting a row over several blocks and running a superblock of
-// epochs per launch are later steps.
+// scratch.  superblock.cu takes the two further steps on the same device
+// code: it runs a whole superblock of epochs in one launch, loop closure
+// included, and splits a row over a cluster of blocks; this kernel stays as
+// the one-epoch step of the eager loop, which is that kernel's plain version.
 
 #include "correlator_common.cuh"
 

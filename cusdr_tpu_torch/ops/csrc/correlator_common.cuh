@@ -1,13 +1,15 @@
-// Device code shared by the epoch correlators (Hopper, sm_90a):
-// correlator.cu (windows fetched in the kernel from the record and tables)
-// and correlator_staged.cu (windows staged before the kernel).
+// Device code shared by the correlator kernels (Hopper, sm_90a):
+// correlator.cu (one epoch, windows fetched in the kernel from the record
+// and tables), correlator_staged.cu (one epoch, windows staged before the
+// kernel) and superblock.cu (every epoch of a superblock in one launch).
 //
 // One thread block correlates one channel row: `correlate_row` walks the
 // row's valid samples, wipes the carrier off with the cos/sin a Carrier
 // functor supplies per sample, multiplies by the early/prompt/late replica
 // taps of the data window and of up to two pilot windows, and reduces the
 // sums over the block in a fixed order.  The kernels differ in where the
-// row's windows lie and in how the carrier is made.
+// row's windows lie, in how the carrier is made and in what they do with
+// the sums.
 
 #pragma once
 
@@ -103,23 +105,27 @@ inline size_t uv_smem_bytes(int blk) {
 // and a sign change, which commutes exactly with the real bilinear sums, so
 // the six reduced sums are rotated, not the baseband.  With two pilot
 // windows the second is rotated by j^pilot2_rot and the pair is combined as
-// w1 * bank1 + w2 * bank2 per sum.  `out_row` gets 8 floats without pilots
-// (iE qE iP qP iL qL 0 0), 16 with (+ piE pqE piP pqP piL pqL 0 0 0 0).
+// w1 * bank1 + w2 * bank2 per sum.
+//
+// Three steps, which the superblock kernel (superblock.cu) calls one by one
+// and `correlate_row` calls in a row: `accumulate_row` (each thread's
+// partial sums over its samples), `reduce_block` (the block's totals, in
+// shared memory) and `output_sum` (one column of the output row from the
+// totals).
+__host__ __device__ constexpr int sums_of(int pilots) {
+  return 6 * (1 + pilots);
+}
+
+// Per-thread partial sums over samples n_begin + threadIdx.x, + kThreads,
+// ... below n_end, added to acc[sums_of(kPilots)].
 template <bool kInterp, int kPilots, class Carrier>
-__device__ __forceinline__ void correlate_row(
+__device__ __forceinline__ void accumulate_row(
     const char2* __restrict__ x, const int8_t* __restrict__ w,
     const int8_t* __restrict__ pw0, const int8_t* __restrict__ pw1,
-    float alpha, float palpha, int n_valid, int k, const Carrier& carrier,
-    float* __restrict__ out_row, int pilot_rot, int pilot2_rot, float w1,
-    float w2) {
-  constexpr int kSums = 6 * (1 + kPilots);
-  constexpr int kOut = kPilots > 0 ? 16 : 8;
+    float alpha, float palpha, int n_begin, int n_end, int k,
+    const Carrier& carrier, float* __restrict__ acc) {
   const int8_t* pw[2] = {pw0, pw1};
-
-  float acc[kSums];
-#pragma unroll
-  for (int j = 0; j < kSums; ++j) acc[j] = 0.f;
-  for (int n = threadIdx.x; n < n_valid; n += kThreads) {
+  for (int n = n_begin + threadIdx.x; n < n_end; n += kThreads) {
     const char2 s = x[n];
     const float si = static_cast<float>(s.x);
     const float sq = static_cast<float>(s.y);
@@ -150,12 +156,16 @@ __device__ __forceinline__ void correlate_row(
       a[5] += pl * bq;
     }
   }
+}
 
-  // Block reduction in a fixed order: warp shuffles, then one thread per
-  // sum adds the warps' partials; the pilot sums are rotated and combined
-  // after it.
-  __shared__ float part[kWarps][kSums];
-  __shared__ float tot[kSums];
+// Block reduction in a fixed order: warp shuffles, then one thread per sum
+// adds the warps' partials into tot[kSums].  `part` and `tot` are shared
+// memory; every thread of the block calls this, and all are past the final
+// barrier when it returns.
+template <int kSums>
+__device__ __forceinline__ void reduce_block(const float* __restrict__ acc,
+                                             float (*part)[kSums],
+                                             float* tot) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -172,26 +182,54 @@ __device__ __forceinline__ void correlate_row(
     tot[threadIdx.x] = v;
   }
   __syncthreads();
-  if (threadIdx.x < kOut) {
-    const int j = threadIdx.x;
-    float v = 0.f;
-    if (j < 6) {
-      v = tot[j];
-    } else if constexpr (kPilots > 0) {
-      if (j < 12) {
-        const int i0 = 6 + ((j - 6) & ~1);   // I sum of this tap, bank 1
-        const int comp = (j - 6) & 1;
-        v = rotate(tot[i0], tot[i0 + 1], pilot_rot, comp);
-        if constexpr (kPilots > 1) {
-          const float v2 =
-              rotate(tot[i0 + 6], tot[i0 + 7], pilot2_rot, comp);
-          // no contraction into an FMA: the reference rounds each product
-          v = __fadd_rn(__fmul_rn(w1, v), __fmul_rn(w2, v2));
-        }
+}
+
+// Column j of the output row from the totals: the data sums (j < 6), the
+// rotated and, with two banks, combined pilot sums (6 <= j < 12), else 0.
+template <int kPilots>
+__device__ __forceinline__ float output_sum(const float* tot, int j,
+                                            int pilot_rot, int pilot2_rot,
+                                            float w1, float w2) {
+  if (j < 6) return tot[j];
+  if constexpr (kPilots > 0) {
+    if (j < 12) {
+      const int i0 = 6 + ((j - 6) & ~1);   // I sum of this tap, bank 1
+      const int comp = (j - 6) & 1;
+      float v = rotate(tot[i0], tot[i0 + 1], pilot_rot, comp);
+      if constexpr (kPilots > 1) {
+        const float v2 = rotate(tot[i0 + 6], tot[i0 + 7], pilot2_rot, comp);
+        // no contraction into an FMA: the reference rounds each product
+        v = __fadd_rn(__fmul_rn(w1, v), __fmul_rn(w2, v2));
       }
+      return v;
     }
-    out_row[j] = v;
   }
+  return 0.f;
+}
+
+// The three steps over a row's first n_valid samples.  `out_row` gets 8
+// floats without pilots (iE qE iP qP iL qL 0 0), 16 with (+ piE pqE piP pqP
+// piL pqL 0 0 0 0).
+template <bool kInterp, int kPilots, class Carrier>
+__device__ __forceinline__ void correlate_row(
+    const char2* __restrict__ x, const int8_t* __restrict__ w,
+    const int8_t* __restrict__ pw0, const int8_t* __restrict__ pw1,
+    float alpha, float palpha, int n_valid, int k, const Carrier& carrier,
+    float* __restrict__ out_row, int pilot_rot, int pilot2_rot, float w1,
+    float w2) {
+  constexpr int kSums = sums_of(kPilots);
+  constexpr int kOut = kPilots > 0 ? 16 : 8;
+  __shared__ float part[kWarps][kSums];
+  __shared__ float tot[kSums];
+  float acc[kSums];
+#pragma unroll
+  for (int j = 0; j < kSums; ++j) acc[j] = 0.f;
+  accumulate_row<kInterp, kPilots>(x, w, pw0, pw1, alpha, palpha, 0, n_valid,
+                                   k, carrier, acc);
+  reduce_block<kSums>(acc, part, tot);
+  if (threadIdx.x < kOut)
+    out_row[threadIdx.x] = output_sum<kPilots>(tot, threadIdx.x, pilot_rot,
+                                               pilot2_rot, w1, w2);
 }
 
 }  // namespace cusdr

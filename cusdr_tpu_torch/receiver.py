@@ -264,9 +264,10 @@ class ReceiverResults:
 
 
 class Receiver:
-    """One-signal receiver front to back, on ``device``."""
+    """One-signal receiver front to back, on ``device``: the card unless
+    the caller asks for another (``"cuda"`` raises where there is none)."""
 
-    def __init__(self, cfg: ReceiverConfig, device):
+    def __init__(self, cfg: ReceiverConfig, device="cuda"):
         self.cfg = cfg
         self.sig = get_signal(cfg.signal)
         self.device = resolve_device(device)

@@ -1,31 +1,46 @@
-"""Per-epoch profile of the tracking engine: where an epoch's time goes.
+"""Profiles of the tracking engine: where an epoch's and a superblock's
+time goes.
 
-The eager engine pays, per epoch, one correlator launch and some tens of
-small elementwise launches (``tracking/engine.py``).  ``profile_epochs``
-measures that split for one channel bank: launches per epoch, host-clock
-wall time per epoch, device time per epoch, the correlator's share of it
-and the device's idle share.  PERF.md's "where the time goes" table is made
-by this function (``chip_smoke.py`` calls it), so that successive readings
-are made the same way.
+The eager epoch loop (``engine.track_superblock_epochs``) pays, per epoch,
+one correlator launch and some tens of small elementwise launches.
+``profile_epochs`` measures that split for one channel bank: launches per
+epoch, host-clock wall time per epoch, device time per epoch, the
+correlator's share of it and the device's idle share.  On a card
+``engine.track_superblock`` is one launch of the superblock kernel, and
+the host loop ``engine.track`` around it stages the record, copies it to
+the card, launches and drains the outputs: ``profile_superblock`` measures
+those four steps and the launch's own profile.  PERF.md's "where the time
+goes" tables are made by these functions (``chip_smoke.py`` calls them), so
+that successive readings are made the same way.
 
-The device numbers come from ``torch.profiler`` (CUPTI) and exist only on a
-CUDA device; on the CPU they are None ("not measured").
+    python -m cusdr_tpu_torch.runtime.profiling --signal gps_l1ca --epochs 1000
+
+prints the per-superblock profile of one preset's bank.  Run it as a
+process of its own for the ``torch.profiler`` part (launches, kernel time):
+in a process some minutes old a trace of one short launch comes back empty.
+
+The device numbers come from ``torch.profiler`` (CUPTI) and from CUDA
+events and exist only on a CUDA device; on the CPU they are None ("not
+measured").
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import sys
 import time
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import get_config, resolve_device
 from ..signals.defs import get_signal
 from ..tracking import engine
 
 # the correlator kernels' names in a trace (csrc/*.cu)
 _CORRELATOR_KERNELS = ("correlate_bank_kernel", "correlate_windows")
+_SUPERBLOCK_KERNEL = "track_superblock_kernel"
 
 
 def make_bank(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
@@ -64,8 +79,8 @@ def make_bank(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
 def profile_epochs(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
                    fetch_in_kernel: bool = True, repeats: int = 3,
                    seed: int = 0) -> dict:
-    """Profile ``track_superblock`` over ``n_epochs`` epochs of the bank
-    ``make_bank`` builds, after a warm-up run.
+    """Profile the eager loop ``track_superblock_epochs`` over ``n_epochs``
+    epochs of the bank ``make_bank`` builds, after a warm-up run.
 
     Returns a dict: ``rows``, ``epochs``, ``wall_ms_per_epoch`` (each of
     ``repeats`` unprofiled runs, host clock around a synchronised run) and,
@@ -80,18 +95,14 @@ def profile_epochs(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
     on_card = device.type == "cuda"
 
     def run():
-        out = engine.track_superblock(iq, 0, tables, ptables, state, params,
-                                      n_epochs)
+        out = engine.track_superblock_epochs(iq, 0, tables, ptables, state,
+                                             params, n_epochs)
         if on_card:
             torch.cuda.synchronize(device)
         return out
 
     run()                                           # warm-up (and build)
-    walls = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        run()
-        walls.append((time.perf_counter() - t0) * 1e3 / n_epochs)
+    walls = [_wall_ms(run) / n_epochs for _ in range(repeats)]
     res = dict(signal=cfg.signal, rows=int(state.abs_sample.shape[0]),
                epochs=n_epochs, fetch_in_kernel=fetch_in_kernel,
                wall_ms_per_epoch=walls, launches_per_epoch=None,
@@ -99,21 +110,141 @@ def profile_epochs(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
                idle_share=None)
     if not on_card:
         return res
+    launches, device_ms, corr_ms = _device_profile(run, _CORRELATOR_KERNELS)
+    if device_ms is None:
+        return res                  # the trace held no device time
+    res.update(
+        launches_per_epoch=launches / n_epochs,
+        device_ms_per_epoch=device_ms / n_epochs,
+        correlator_ms_per_epoch=corr_ms / n_epochs,
+        idle_share=1.0 - device_ms / n_epochs / min(walls))
+    return res
+
+
+def _wall_ms(fn) -> float:
+    """Host-clock milliseconds of one call of ``fn`` (which ends with the
+    device's work done)."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _device_profile(run, kernel_names):
+    """One call of ``run`` under ``torch.profiler``: (device kernels and
+    copies in the trace, their device milliseconds, the device milliseconds
+    of the kernels named in ``kernel_names``); (0, None, None) when the
+    trace holds no device time, as it can for a run as short as one launch
+    in a process some minutes old.  ``run`` ends with the device's work
+    done."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in events)
     if device_us <= 0:
-        return res                  # the trace held no device time
-    corr_us = sum(e.self_device_time_total for e in events
-                  if any(k in e.key for k in _CORRELATOR_KERNELS))
-    res.update(
-        launches_per_epoch=sum(e.count for e in events) / n_epochs,
-        device_ms_per_epoch=device_us / 1e3 / n_epochs,
-        correlator_ms_per_epoch=corr_us / 1e3 / n_epochs,
-        idle_share=1.0 - device_us / 1e3 / n_epochs / min(walls))
+        return 0, None, None
+    named_us = sum(e.self_device_time_total for e in events
+                   if any(k in e.key for k in kernel_names))
+    return sum(e.count for e in events), device_us / 1e3, named_us / 1e3
+
+
+def profile_superblock(cfg, device, n_epochs: int, n_blocks: int = 1,
+                       repeats: int = 3, seed: int = 0) -> dict:
+    """Profile one superblock of ``n_epochs`` epochs the way
+    ``engine.track`` runs it, step by step on the bank ``make_bank``
+    builds, each step ended with the device's work done.
+
+    Returns a dict: ``rows``, ``epochs``, ``buffer_bytes`` and, in host
+    milliseconds (each of ``repeats`` runs after a warm-up), ``stage_ms``
+    (``engine.stage_superblock``: the zeroed buffer and the copy of the
+    record into it), ``h2d_ms`` (the buffer's copy to the device),
+    ``track_ms`` (``engine.track_superblock``: one launch of the
+    superblock kernel on a card, the eager loop on the CPU) and
+    ``drain_ms`` (the outputs' copy to the host); on a CUDA device also
+    ``device_ms`` (the card's time per ``track_superblock`` call: CUDA
+    events over five calls made back to back, which keep the card busy
+    throughout), ``idle_share`` (1 − ``device_ms`` over the least
+    ``track_ms``) and, from ``torch.profiler`` where its trace holds the
+    call, ``launches`` (device kernels and copies of ``track_superblock``)
+    and ``kernel_ms`` (the superblock kernel alone); None for these on the
+    CPU."""
+    device = resolve_device(device)
+    iq, tables, ptables, state, params = make_bank(cfg, device, n_blocks,
+                                                   n_epochs, seed)
+    record = iq.cpu().numpy()
+    buf_len = len(record) // 2
+    on_card = device.type == "cuda"
+    kept = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    def stage():
+        kept["buf"] = engine.stage_superblock(record, 0, buf_len)
+
+    def h2d():
+        kept["iq"] = torch.from_numpy(kept["buf"]).to(device)
+        sync()
+
+    def launch():
+        kept["outs"] = engine.track_superblock(
+            kept["iq"], 0, tables, ptables, state, params, n_epochs)[1]
+
+    def run():
+        launch()
+        sync()
+
+    def drain():
+        host, done = engine._to_host(kept["outs"], device)
+        if done is not None:
+            done.synchronize()
+        kept["host"] = [x.numpy() for x in host]
+
+    steps = dict(stage_ms=stage, h2d_ms=h2d, track_ms=run, drain_ms=drain)
+    for fn in steps.values():                       # warm-up (and build)
+        fn()
+    res = dict(signal=cfg.signal, rows=int(state.abs_sample.shape[0]),
+               epochs=n_epochs, buffer_bytes=2 * buf_len,
+               **{name: [] for name in steps}, launches=None,
+               device_ms=None, kernel_ms=None, idle_share=None)
+    for _ in range(repeats):
+        for name, fn in steps.items():
+            res[name].append(_wall_ms(fn))
+    if not on_card:
+        return res
+    first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    first.record()
+    for _ in range(5):
+        launch()
+    last.record()
+    last.synchronize()
+    device_ms = first.elapsed_time(last) / 5
+    res.update(device_ms=device_ms,
+               idle_share=1.0 - device_ms / min(res["track_ms"]))
+    launches, traced_ms, kernel_ms = _device_profile(
+        run, (_SUPERBLOCK_KERNEL,))
+    if traced_ms is not None:
+        res.update(launches=launches, kernel_ms=kernel_ms)
     return res
+
+
+def format_superblock_profile(p: dict) -> str:
+    """One line of ``profile_superblock``'s result."""
+    def span(name):
+        return f"{min(p[name]):.3f}-{max(p[name]):.3f}"
+
+    def f(x, spec):
+        return "not measured" if x is None else format(x, spec)
+
+    return (f"{p['signal']}, {p['rows']} rows x {p['epochs']} epochs, "
+            f"{p['buffer_bytes'] / 1e6:.1f} MB buffer: stage "
+            f"{span('stage_ms')} ms, copy to device {span('h2d_ms')} ms, "
+            f"track_superblock {span('track_ms')} ms (device "
+            f"{f(p['device_ms'], '.3f')} ms, idle "
+            f"{f(p['idle_share'], '.1%')}; "
+            f"{f(p['launches'], 'd')} launches, superblock kernel "
+            f"{f(p['kernel_ms'], '.3f')} ms), drain {span('drain_ms')} ms")
 
 
 def format_profile(p: dict) -> str:
@@ -130,3 +261,24 @@ def format_profile(p: dict) -> str:
             f"{f(p['device_ms_per_epoch'], '.4f')} ms/epoch, correlator "
             f"{f(p['correlator_ms_per_epoch'], '.4f')} ms/epoch, idle "
             f"{f(p['idle_share'], '.1%')}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="cusdr_tpu_torch.runtime.profiling",
+        description="per-superblock profile of one preset's channel bank")
+    ap.add_argument("--signal", default="gps_l1ca")
+    ap.add_argument("--epochs", type=int, default=1000,
+                    help="epochs in the superblock")
+    ap.add_argument("--blocks", type=int, default=1,
+                    help="time blocks in the bank (rows = blocks x channels)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    p = profile_superblock(get_config(args.signal), args.device, args.epochs,
+                           n_blocks=args.blocks)
+    print(format_superblock_profile(p))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,13 +1,18 @@
 """Channel-bank tracking engine in PyTorch: the gps_l1ca main-path slice.
 
 Counterpart of cusdr_tpu/tracking/engine.py (same names, fields and
-[n_epochs, C] output layout).  Per 1 ms epoch the whole bank takes one
-correlator launch (ops/correlator.py, the CUDA kernel on a card) and a
-few [C]-wide f64 tensor ops for the discriminators and loop filters
-(``_close_epoch``); loop state stays float64 on the device.  The host
-loop ``track`` stages the record one superblock at a time and reads a
-superblock's outputs back one superblock late, so the host waits on the
-device once per superblock, not once per epoch.
+[n_epochs, C] output layout).  ``track_superblock`` tracks the whole bank
+through a superblock of epochs.  On a card, with the windows fetched in
+the kernel, that is ONE launch of the superblock kernel
+(ops/csrc/superblock.cu: window geometry, correlator sums and loop closure
+of every epoch, loop state in the row's thread block).  Its plain version
+is the eager loop ``track_superblock_epochs``, which the CPU and the
+staged-window path run: per epoch one correlator launch
+(ops/correlator.py) and a few [C]-wide f64 tensor ops for the
+discriminators and loop filters (``_close_epoch``); loop state stays
+float64 on the device.  The host loop ``track`` stages the record one
+superblock at a time and reads a superblock's outputs back one superblock
+late, so the host waits on the device once per superblock.
 
 Covered: the fast sliced-replica path (``fast_code``) for data-only and
 data+pilot signals, including the long pilot (L2C CL, ``pilot_period_mod``)
@@ -30,7 +35,7 @@ import torch
 
 from ..signals.defs import SignalDef
 from ..ops.correlator import (correlate_bank, correlate_windows,
-                              stage_windows)
+                              stage_windows, track_superblock_bank)
 from .cno import cno_vsm, pll_lock_detector
 from .loop_filters import (calc_loop_coef, calc_loop_coef_carr3,
                            calc_loop_coef_exact)
@@ -122,6 +127,24 @@ class TrackOutputs(NamedTuple):
     rem_carr_phase: torch.Tensor
     abs_sample: torch.Tensor
     blksize: torch.Tensor
+
+
+# ChannelState's f64 fields, in the order the superblock kernel reads them
+_F64_FIELDS = ChannelState._fields[:12]
+
+
+def pack_state(state: ChannelState):
+    """The state as the superblock kernel takes it: (f64 [12, C] of the
+    f64 fields in order, abs_sample [C] int64, pilot_period [C] int32,
+    active [C] bool)."""
+    return (torch.stack(state[:len(_F64_FIELDS)]), state.abs_sample,
+            state.pilot_period, state.active)
+
+
+def unpack_state(f64, abs_sample, pilot_period, active) -> ChannelState:
+    """``pack_state``'s inverse; the f64 fields are views of ``f64``."""
+    return ChannelState(*f64.unbind(0), abs_sample=abs_sample,
+                        pilot_period=pilot_period, active=active)
 
 
 def init_channel_state(channels: Sequence, code_freq_basis: float,
@@ -313,7 +336,30 @@ def track_superblock(iq: torch.Tensor, sb_start: int, tables: torch.Tensor,
     tensor on iq's device (rows of time blocks with different buffer ends
     in one flat bank), default the end of the superblock.  More rows than
     table rows share the tables by row modulo.  Returns (new_state,
-    TrackOutputs [n_epochs, C])."""
+    TrackOutputs [n_epochs, C]).
+
+    A record on a card with ``params.fetch_in_kernel`` takes one launch of
+    the superblock kernel (a build or launch failure raises); a record on
+    the CPU, and staged windows, take ``track_superblock_epochs``."""
+    if iq.device.type != "cuda" or not params.fetch_in_kernel:
+        return track_superblock_epochs(iq, sb_start, tables, pilot_tables,
+                                       state, params, n_epochs, end_sample)
+    end_sample = _check_superblock(iq, sb_start, pilot_tables, params,
+                                   end_sample)
+    n_ch = state.carr_freq.shape[0]
+    if not isinstance(end_sample, torch.Tensor):
+        end_sample = torch.full((n_ch,), end_sample, dtype=torch.int64,
+                                device=iq.device)
+    new, packed = track_superblock_bank(
+        iq, sb_start, tables, pilot_tables if params.has_pilot else None,
+        *pack_state(state), end_sample, n_epochs, params,
+        up_margin=UP_MARGIN)
+    return _finish_bank(unpack_state(*new), packed)
+
+
+def _check_superblock(iq, sb_start, pilot_tables, params, end_sample):
+    """What ``track_superblock`` takes on either path; returns
+    ``end_sample`` with its default filled in."""
     if params.has_pilot and pilot_tables is None:
         raise ValueError("a pilot bank needs pilot_tables")
     if iq.dtype != torch.int8:
@@ -321,6 +367,20 @@ def track_superblock(iq: torch.Tensor, sb_start: int, tables: torch.Tensor,
             "int16 records are not ported yet (ROADMAP.md Queue A item 9)")
     if end_sample is None:
         end_sample = sb_start + iq.shape[0] // 2
+    return end_sample
+
+
+def track_superblock_epochs(iq: torch.Tensor, sb_start: int,
+                            tables: torch.Tensor,
+                            pilot_tables: Optional[torch.Tensor],
+                            state: ChannelState, params: TrackParams,
+                            n_epochs: int, end_sample=None):
+    """``track_superblock`` as an eager loop over the epochs (arguments and
+    result as there), on any device: per epoch the geometry as [C] tensor
+    ops, one correlator launch and ``_close_epoch``.  It is the plain
+    version the superblock kernel is held against."""
+    end_sample = _check_superblock(iq, sb_start, pilot_tables, params,
+                                   end_sample)
     n_ch = state.carr_freq.shape[0]
     wrow = torch.arange(n_ch, device=iq.device) % tables.shape[0]
     o32, o64, oi = [], [], []
@@ -512,6 +572,17 @@ def _to_host(outs: TrackOutputs, device: torch.device):
     return host, done
 
 
+def stage_superblock(samples_iq: np.ndarray, sb_start: int,
+                     buf_len: int) -> np.ndarray:
+    """A superblock's staging buffer: ``buf_len`` samples of the
+    interleaved int8 record from sample ``sb_start``, zeros past the
+    record's end."""
+    buf = np.zeros(2 * buf_len, np.int8)
+    lo, hi = sb_start, min(sb_start + buf_len, len(samples_iq) // 2)
+    buf[:2 * (hi - lo)] = samples_iq[2 * lo:2 * hi]
+    return buf
+
+
 def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
           device, n_epochs: Optional[int] = None) -> TrackResults:
     """Host loop: stage superblocks on ``device``, run the engine,
@@ -556,9 +627,11 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
     chunks = []
     drop_ratio = 10.0 ** (-cfg.lock_power_drop_db / 10.0)
 
-    def drain(outs, done, cur):
-        """Wait for a dispatched superblock's outputs and run the lock
-        gate on them; returns a drop mask for the carry state, or None.
+    def drain(outs, done, cur, sb_start, buf_len):
+        """Wait for a dispatched superblock's outputs, hold its windows to
+        the buffer it was staged in (``buf_len`` samples from
+        ``sb_start``) and run the lock gate on them; returns a drop mask
+        for the carry state, or None.
 
         Lock gate: the PLL NBD/NBP detector plus a prompt-power gate
         against the channel's running-max power; a channel failing either
@@ -568,6 +641,17 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
         if done is not None:
             done.synchronize()
         out_np = TrackOutputs(*(x.numpy() for x in outs))
+        # the window bounds below are analytic; a window outside the buffer
+        # was clamped on the device and correlated the wrong samples
+        off = out_np.abs_sample - sb_start
+        outside = (out_np.blksize > 0) & ((off < 0)
+                                          | (off > buf_len - params.blk))
+        if outside.any():
+            ep, ch = np.argwhere(outside)[0]
+            raise RuntimeError(
+                f"channel {ch} (PRN {channels[ch][0]}): the window at "
+                f"sample {out_np.abs_sample[ep, ch]} lies outside its "
+                f"superblock's buffer [{sb_start}, {sb_start + buf_len})")
         chunks.append(out_np)
         if not (cfg.lock_detect and cur >= vsm):
             return None
@@ -610,9 +694,7 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
                 max_phase - min_phase0 + (sb_epochs + 4) * spc
                 + 2 * drift_end + params.blk + 256, 4 * spc)
         buf_len = max(buf_len, _round_up(need, 4 * spc))
-        buf = np.zeros(2 * buf_len, np.int8)
-        lo, hi = sb_start, min(sb_start + buf_len, total_samples)
-        buf[:2 * (hi - lo)] = samples_iq[2 * lo:2 * hi]
+        buf = stage_superblock(samples_iq, sb_start, buf_len)
         if drop_mask is not None:
             state = state._replace(active=state.active & torch.from_numpy(
                 ~drop_mask).to(device))
@@ -622,7 +704,7 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
         done += cur
         if pending is not None:
             drop_mask = drain(*pending)     # lags one superblock
-        pending = (*_to_host(outs, device), cur)
+        pending = (*_to_host(outs, device), cur, sb_start, buf_len)
     if pending is not None:
         drain(*pending)
 

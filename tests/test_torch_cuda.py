@@ -1,8 +1,11 @@
-"""The CUDA epoch correlators on a card: each kernel against its plain
+"""The CUDA kernels on a card: each epoch correlator against its plain
 PyTorch version, alone at the ported paths' shapes (no pilot, pilot, dual
 pilot; windows fetched in the kernel or staged; u·v, phase-ramp and table
-carriers) and inside ``track_superblock`` (gps_l1ca, gal_e5a with its pilot
-bank, the flat 96-row time-parallel bank, the staged path).
+carriers); the superblock kernel (one launch per superblock) against its
+plain version, the eager epoch loop, at the gps_l1ca, gal_e5a and bds_b1c WB
+shapes; and ``track_superblock`` on the card against the CPU (gps_l1ca,
+gal_e5a with its pilot bank, the flat 96-row time-parallel bank, the staged
+path).
 
 Every case needs a CUDA card and skips without one.  The file imports no
 jax, so it also runs where jax is absent:
@@ -15,8 +18,14 @@ PyTorch's reductions), so |kernel - plain| <= 1e-4 * (max|plain| + 1).
 Through ``track_superblock`` the tolerances are those of
 tests/test_torch_correlator.py: sums ``atol 2e-4·scale`` (the summation
 order differs in every epoch and feeds the loops), loop state ``rtol 1e-6,
-atol 1e-4``, ``abs_sample`` exact.
+atol 1e-4``, ``abs_sample`` exact.  The superblock kernel with one thread
+block per row repeats the eager loop's arithmetic operation by operation
+and must equal it bit for bit; with a cluster per row the slices of an
+epoch are summed in rank order, so its sums are held to the kernels'
+tolerance above.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -28,6 +37,7 @@ from cusdr_tpu_torch.ops import correlator as corr
 from cusdr_tpu_torch.ops.correlator import (LAUNCHES, correlate_bank,
                                             correlate_bank_plain)
 from cusdr_tpu_torch.parallel import timeblocks
+from cusdr_tpu_torch.runtime.profiling import make_bank
 from cusdr_tpu_torch.tracking import engine
 
 pytestmark = pytest.mark.cuda
@@ -148,8 +158,8 @@ def test_pilot_kernels_match_plain_version(cuda, variant, n_ch, blk, k,
 @pytest.mark.parametrize("signal,interp_taps", [
     ("gps_l1ca", True), ("gps_l1ca", False), ("gal_e5a", True)])
 def test_track_superblock_on_card_matches_cpu(cuda, signal, interp_taps):
-    """12 channels at the preset's 18 Msps for 12 epochs: one kernel
-    launch per epoch, outputs and loop state as on the CPU."""
+    """12 channels at the preset's 18 Msps for 12 epochs: one launch of
+    the superblock kernel, outputs and loop state as on the CPU."""
     cfg = get_config(signal, interp_taps=interp_taps)
     sig = get_signal(signal)
     params = engine.make_track_params(cfg, sig)
@@ -176,8 +186,8 @@ def test_track_superblock_on_card_matches_cpu(cuda, signal, interp_taps):
 
     st_c, out_c = run(torch.device("cpu"))
     want = dict(LAUNCHES)
-    want["correlate_bank" if ptabs is None else "correlate_bank_pilot"] += \
-        n_epochs
+    want["track_superblock" if ptabs is None
+         else "track_superblock_pilot"] += 1
     st_g, out_g = run(cuda)
     torch.cuda.synchronize()
     assert LAUNCHES == want
@@ -237,6 +247,105 @@ def test_window_kernels_match_plain_version(cuda, variant, n_ch, blk, k,
     fetch = correlate_bank(*args, k=k, blk=blk, interp_taps=interp_taps,
                            **pilot)
     _close(got, fetch, 16 if n_pilots else 8)
+    # both kernels run the same row loop on the same windows: after the
+    # loop's split into accumulate / reduce / output steps they still agree
+    # to the bit
+    assert torch.equal(got, fetch)
+
+
+def _assert_tracks_close(got, want, exact):
+    """``exact``: every field of the state and the outputs equal.  Else
+    (a cluster per row, whose sums are added in another order): the integer
+    fields equal, every value finite, and the first epoch's sums within
+    the kernels' tolerance; on these noise records the loops amplify the
+    later epochs' rounding, so the whole superblock is held to the eager
+    loop on the locked channels of chip_smoke.py's phase 3e."""
+    for g_all, w_all in zip(got, want):
+        for name, g, w in zip(g_all._fields, g_all, w_all):
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            if exact or not g.is_floating_point():
+                assert torch.equal(g, w), name
+            else:
+                assert torch.isfinite(g).all(), name
+    if not exact:
+        for name in ("i_e", "q_e", "i_p", "q_p", "i_l", "q_l", "pilot_ip",
+                     "pilot_qp"):
+            g, w = getattr(got[1], name)[0], getattr(want[1], name)[0]
+            tol = RTOL_SUM * (w.abs().max().item() + 1.0)
+            assert (g - w).abs().max().item() <= tol, name
+
+
+@pytest.mark.parametrize("interp_taps", [True, False])
+@pytest.mark.parametrize("signal,over,n_blocks,n_epochs", [
+    ("gps_l1ca", {}, 1, 40),                      # 12 x 18 008, k = 9
+    ("gps_l1ca", dict(pll_order=3), 1, 40),
+    ("gps_l1ca", {}, 8, 20),                      # the 96-row flat bank
+    ("gal_e5a", {}, 1, 40),                       # pilot, 12 x 18 008
+    ("bds_b1c", dict(pilot_trk_flag=2), 1, 12),   # dual pilot, 15 x 180 008
+])
+def test_superblock_kernel_matches_eager_loop(cuda, signal, over, n_blocks,
+                                              n_epochs, interp_taps):
+    """One launch for the whole superblock against the eager epoch loop on
+    the same card: bit for bit with one block per row; with a cluster per
+    row the block sizes equal and the first epoch's sums within the kernels'
+    tolerance; the last rows end part way through and freeze, and a row
+    that comes in inactive (a dropped channel) stays frozen."""
+    cfg = get_config(signal, **over)
+    iq, tables, ptables, state, params = make_bank(cfg, cuda, n_blocks,
+                                                   n_epochs)
+    params = dataclasses.replace(params, interp_taps=interp_taps)
+    n_rows = state.abs_sample.shape[0]
+    active = state.active.clone()
+    active[-3] = False
+    state = state._replace(active=active)
+    end = torch.full((n_rows,), iq.shape[0] // 2, device=cuda)
+    end[-2] = state.abs_sample[-2] + (n_epochs // 2) * cfg.samples_per_code
+    end[-1] = state.abs_sample[-1] + 5
+    args = (iq, 0, tables, ptables, state, params, n_epochs, end)
+    before = dict(LAUNCHES)
+    want = engine.track_superblock_epochs(*args)
+    name = corr.SUPERBLOCK_VARIANTS[
+        0 if ptables is None else ptables.dim() - 1]
+    assert LAUNCHES[name] == before[name]
+    assert LAUNCHES[corr.VARIANTS[corr.SUPERBLOCK_VARIANTS.index(name)]] \
+        == before[corr.VARIANTS[corr.SUPERBLOCK_VARIANTS.index(name)]] \
+        + n_epochs
+    valid = want[1].blksize > 0
+    assert valid[:, :-3].all() and not valid[:, -1].any()
+    assert valid[0, -2] and not valid[-1, -2] and not valid[:, -3].any()
+    got = engine.track_superblock(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before[name] + 1
+    cluster = corr.cluster_size(n_rows)
+    _assert_tracks_close(got, want, exact=cluster == 1)
+    new, packed = corr.track_superblock_bank(
+        iq, 0, tables, ptables, *engine.pack_state(state), end, n_epochs,
+        params, up_margin=engine.UP_MARGIN, cluster=1)
+    torch.cuda.synchronize()
+    one = engine._finish_bank(engine.unpack_state(*new), packed)
+    _assert_tracks_close(one, want, exact=True)
+
+
+def test_superblock_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    cfg = get_config("gps_l1ca")
+    iq, tables, _, state, params = make_bank(cfg, cuda, 1, 4)
+    end = torch.full((12,), iq.shape[0] // 2, device=cuda)
+    packed = engine.pack_state(state)
+    kw = dict(up_margin=engine.UP_MARGIN)
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="end_sample"):
+        corr.track_superblock_bank(iq, 0, tables, None, *packed,
+                                   end.int(), 4, params, **kw)
+    with pytest.raises(ValueError, match="state_f64"):
+        corr.track_superblock_bank(iq, 0, tables, None, packed[0][:10],
+                                   *packed[1:], end, 4, params, **kw)
+    with pytest.raises(ValueError, match="n_epochs"):
+        corr.track_superblock_bank(iq, 0, tables, None, *packed, end, 0,
+                                   params, **kw)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        corr.track_superblock_bank(iq, 0, tables, None, *packed, end, 4,
+                                   params, cluster=3, **kw)
+    assert LAUNCHES == before
 
 
 @pytest.mark.parametrize("n_ch", [12, 96])
@@ -289,9 +398,9 @@ def test_window_wrapper_rejects_what_the_kernel_cannot_take(cuda):
 @pytest.mark.parametrize("fetch_in_kernel", [True, False])
 def test_flat_96_row_bank_on_card_matches_cpu(cuda, fetch_in_kernel):
     """Eight time blocks of the 12-channel gps_l1ca preset as one 96-row
-    bank for 10 epochs: one launch per epoch of the fetch kernel (flat
-    path) or of the staged kernel (per-block path), block states and
-    outputs as on the CPU."""
+    bank for 10 epochs: one launch of the superblock kernel (flat path)
+    or one of the staged kernel per epoch (per-block path), block states
+    and outputs as on the CPU."""
     cfg = get_config("gps_l1ca")
     sig = get_signal("gps_l1ca")
     params = engine.make_track_params(cfg, sig)
@@ -326,7 +435,10 @@ def test_flat_96_row_bank_on_card_matches_cpu(cuda, fetch_in_kernel):
 
     st_c, out_c = run(torch.device("cpu"))
     want = dict(LAUNCHES)
-    want["correlate_bank" if fetch_in_kernel else "correlate_windows"] += epb
+    if fetch_in_kernel:
+        want["track_superblock"] += 1
+    else:
+        want["correlate_windows"] += epb
     st_g, out_g = run(cuda)
     torch.cuda.synchronize()
     assert LAUNCHES == want
