@@ -7,8 +7,8 @@ Phases, each of which fails the run when it fails:
 
 1. environment: the card, its power limit, CUDA and nvcc versions;
 2. build the CUDA kernels from cusdr_tpu_torch/ops/csrc/correlator.cu,
-   correlator_staged.cu and superblock.cu (one nvcc each, started
-   together);
+   correlator_staged.cu, superblock.cu and superblock_staged.cu (one nvcc
+   each, started together);
 3. the fetch kernel against its plain PyTorch version at the main path's
    shapes (12 channels, and the 96 rows of eight time blocks, blk = 18 008
    samples, k = 9, both tap modes, some windows clamped at the record's
@@ -28,7 +28,9 @@ Phases, each of which fails the run when it fails:
    per-superblock profile of ``track_superblock`` on the superblock kernel
    (staging, copy to the card, launch, drain) from
    cusdr_tpu_torch/runtime/profiling.py, for the 12-row bank of each path
-   and the 96-row time-parallel bank;
+   and the 96-row time-parallel bank, and (in a process of its own, as for
+   the first bank) on the staged superblock kernel for the 96-row per-block
+   bank;
 3e. the superblock kernel (one launch tracks a bank through every epoch of
    a superblock) against its plain version, the eager epoch loop
    ``track_superblock_epochs``, on the card, on the records of the scenes
@@ -42,6 +44,12 @@ Phases, each of which fails the run when it fails:
    tolerances stated at TRACK_RTOL below); per case the count of differing
    elements and the largest difference per field, both times and the
    card's bound;
+3f. the staged superblock kernel (each epoch's windows staged into shared
+   memory by bulk copies) against its plain version, the eager loop on
+   staged windows, on phase 3e's cases, held as 3e holds the fetch kernel
+   (one block per row bit for bit, raising on any differing element); per
+   case the slow-path epochs, both times, the bound, and the fetch
+   superblock kernel's time on the same bank, timed in turns with it;
 4. the main path at the gps_l1ca preset's full width (18 Msps, 12
    channels, 32 PRNs x 29 Doppler bins x 20 ms): ``Receiver.run`` on four
    seconds of a 12-SV synthetic scene; every SV acquired, every channel in
@@ -66,9 +74,11 @@ Phases, each of which fails the run when it fails:
    passes): every channel in lock over each block's tail, prompt signs as
    the sequential run's across every block boundary, one superblock-kernel
    launch per pass; then the same record through the per-block path
-   (staged windows, one staged-kernel launch per epoch step), and the pilot
-   and dual-pilot staged variants on the records of phases 6 and 7 (two
-   blocks each);
+   (staged windows: one staged superblock-kernel launch per pass, then the
+   eager loop in its place, one staged per-epoch kernel launch per epoch
+   step, for the real-time factors before and after), and the pilot and
+   dual-pilot staged variants likewise on the records of phases 6 and 7
+   (two blocks each);
 10. time-parallel PVT: phase 5's scene with ``time_blocks=8``; fixes
    within phase 5's bounds.
 
@@ -123,8 +133,12 @@ KERNELS = {
     "track_superblock": (
         _CSRC + "superblock.cu", "cusdr_tpu/ops/correlator.py:563",
         "track_superblock_kernel"),
+    "track_superblock_staged": (
+        _CSRC + "superblock_staged.cu", "cusdr_tpu/ops/correlator.py:237",
+        "track_superblock_staged_kernel"),
 }
-for _base in ("correlate_bank", "correlate_windows", "track_superblock"):
+for _base in ("correlate_bank", "correlate_windows", "track_superblock",
+              "track_superblock_staged"):
     for _suffix in ("_pilot", "_dual_pilot"):
         KERNELS[_base + _suffix] = KERNELS[_base]
 # phase 3e: the superblock kernel against the eager loop through a
@@ -574,17 +588,20 @@ def _compare_tracks(got, want):
 
 
 def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
-                     n_blocks=1):
-    """Phase 3e, one bank: the superblock kernel against the eager loop on
-    the first ``n_blocks * n_epochs`` epochs of the record ``iq`` from the
-    channels' given code phases and carriers, in both tap modes, with one
-    block per row and with the wrapper's own cluster size; the card's time
-    per launch (CUDA events over back-to-back launches on the packed state:
-    a trace of launches this few can come back empty), the wall time per
+                     n_blocks=1, staged=False):
+    """Phase 3e (3f with ``staged``), one bank: the superblock kernel (the
+    staged one) against the eager loop (on staged windows) on the first
+    ``n_blocks * n_epochs`` epochs of the record ``iq`` from the channels'
+    given code phases and carriers, in both tap modes, with one block per
+    row and with the wrapper's own cluster size; the card's time per launch
+    (CUDA events over back-to-back launches on the packed state: a trace of
+    launches this few can come back empty), the wall time per
     ``track_superblock`` call, the eager loop's device time (torch.profiler)
     and wall time, and the card's bound for this run's data.  With
-    ``n_blocks`` > 1 the bank holds that many time blocks of the channels
-    and every odd block's rows end part way through the superblock."""
+    ``staged`` also the slow-path epochs and, timed in turns with it on the
+    same bank, the fetch superblock kernel.  With ``n_blocks`` > 1 the bank
+    holds that many time blocks of the channels and every odd block's rows
+    end part way through the superblock."""
     import dataclasses
     import numpy as np
     import torch
@@ -612,11 +629,14 @@ def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
             channels, sig.chip_rate_hz, dev, dopplers=dops,
             carrier_freq_hz=sig.carrier_freq_hz)
     n_rows = state.abs_sample.shape[0]
-    n_pilots = corr.SUPERBLOCK_VARIANTS.index(name)
+    variants = (corr.STAGED_SUPERBLOCK_VARIANTS if staged
+                else corr.SUPERBLOCK_VARIANTS)
+    n_pilots = variants.index(name)
     rows = {}
     for interp in (True, False):
         params = dataclasses.replace(engine.make_track_params(cfg, sig),
-                                     interp_taps=interp)
+                                     interp_taps=interp,
+                                     fetch_in_kernel=not staged)
         ctabs, ptabs = engine.build_replica_tables(cfg, sig, params,
                                                    channels, dops)
         tables = torch.from_numpy(ctabs).to(dev)
@@ -634,14 +654,20 @@ def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
         packed_state = engine.pack_state(state)
         end_rows = end if end is not None else torch.full(
             (n_rows,), n_samp, dtype=torch.int64, device=dev)
+        slow = {}
 
-        def launch(size):
-            """The wrapper alone on the packed state: back to back, the
+        def launch(size, fetch=not staged):
+            """A wrapper alone on the packed state: back to back, the
             card's time per call is the kernel's."""
-            new, packed = corr.track_superblock_bank(
-                rec, 0, tables, ptables, *packed_state, end_rows, n_epochs,
-                params, up_margin=engine.UP_MARGIN, cluster=size)
-            return engine._finish_bank(engine.unpack_state(*new), packed)
+            bank = corr.track_superblock_bank if fetch \
+                else corr.track_superblock_staged_bank
+            res = bank(rec, 0, tables, ptables, *packed_state, end_rows,
+                       n_epochs, dataclasses.replace(
+                           params, fetch_in_kernel=fetch),
+                       up_margin=engine.UP_MARGIN, cluster=size)
+            if not fetch:
+                slow[size] = res[2]
+            return engine._finish_bank(engine.unpack_state(*res[0]), res[1])
 
         want = eager()
         torch.cuda.synchronize()
@@ -650,8 +676,9 @@ def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
                                  and (blksize[-1] > 0).any()):
             raise AssertionError(f"{name} {label}: the per-row ends froze "
                                  "no row or every row")
-        tag = (f"[superblock] {name} {label} {n_rows} x {params.blk} x "
-               f"{n_epochs} epochs, interp_taps={interp}")
+        tag = (f"[{'staged ' if staged else ''}superblock] {name} {label} "
+               f"{n_rows} x {params.blk} x {n_epochs} epochs, "
+               f"interp_taps={interp}")
         cluster = corr.cluster_size(n_rows)
         measured = {}
         for size in sorted({1, cluster}):
@@ -670,11 +697,34 @@ def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
             if beyond:
                 raise AssertionError(f"{tag}, {size} block(s) per row: "
                                      f"beyond the tolerance: {beyond}")
-            measured[size] = (n_diff, err32, _timed(fn, 5))
+            if staged:
+                # the staged kernel and the fetch kernel in turns
+                def fetch_fn():
+                    return launch(size, fetch=True)
+
+                f1, s1, s2, f2 = (_timed(f, 5)
+                                  for f in (fetch_fn, fn, fn, fetch_fn))
+                n_slow = int(slow[size].sum().item())
+                log(f"{tag}, {size} block(s) per row: slow-path epochs "
+                    f"{n_slow} (summed over rows and blocks); time on the "
+                    f"card per superblock (CUDA events over back-to-back "
+                    f"launches): staged {(s1 + s2) / 2:.4f} ms ({s1:.4f}, "
+                    f"{s2:.4f}), fetch superblock kernel "
+                    f"{(f1 + f2) / 2:.4f} ms ({f1:.4f}, {f2:.4f}): "
+                    f"staged / fetch {(s1 + s2) / (f1 + f2):.3f}")
+                measured[size] = (n_diff, err32, (s1 + s2) / 2,
+                                  (f1 + f2) / 2, n_slow)
+            else:
+                measured[size] = (n_diff, err32, _timed(fn, 5))
         row = dict(err=measured[cluster][1], n_diff=measured[cluster][0],
                    cluster=cluster, device_ms=measured[cluster][2],
                    n_diff_one_block=measured[1][0],
                    device_ms_one_block=measured[1][2])
+        if staged:
+            row.update(fetch_ms=measured[cluster][3],
+                       fetch_ms_one_block=measured[1][3],
+                       slow_epochs=measured[cluster][4],
+                       slow_epochs_one_block=measured[1][4])
         scale = max(getattr(want[1], f).abs().max().item()
                     for f in ("i_e", "q_e", "i_p", "q_p", "i_l", "q_l"))
         e1, k1, k2, e2 = (_timed(f, 2) for f in (eager, kern, kern, eager))
@@ -700,10 +750,12 @@ def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
                 k=params.k_spacing, rows=rows)
 
 
-def superblock_checks(scenes):
-    """Phase 3e on the scenes' records; returns {kernel: [checks]}, the
-    first check of a kernel at its path's shape."""
+def superblock_checks(scenes, staged=False):
+    """Phase 3e (3f with ``staged``: the staged superblock kernel) on the
+    scenes' records; returns {kernel: [checks]}, the first check of a
+    kernel at its path's shape."""
     from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.ops import correlator as corr
     from cusdr_tpu_torch.signals.defs import get_signal
 
     def truth(cfg, svs):
@@ -713,23 +765,25 @@ def superblock_checks(scenes):
     l1, e5a = get_config("gps_l1ca"), get_config("gal_e5a")
     b1c = get_config("bds_b1c", **B1C_WB)
     l2c = get_config("gps_l2c", **L2C_OVER)
+    # (pilot banks, path, config, scene, channels, epochs, time blocks)
     cases = (
-        ("track_superblock", "gps_l1ca", l1, scenes["main"], None, 250, 1),
-        ("track_superblock", "gps_l1ca time_blocks=8, per-row ends", l1,
-         scenes["main"], None, 250, TIME_BLOCKS),
-        ("track_superblock_pilot", "gal_e5a", e5a, scenes["e5a"], None, 250,
-         1),
-        ("track_superblock_pilot", "gps_l2c CL long pilot", l2c,
-         scenes["l2c"], L2C_CHANNELS, L2C_EPOCHS, 1),
-        ("track_superblock_dual_pilot", "bds_b1c WB", b1c, scenes["b1c"],
-         None, 100, 1))
+        (0, "gps_l1ca", l1, scenes["main"], None, 250, 1),
+        (0, "gps_l1ca time_blocks=8, per-row ends", l1, scenes["main"],
+         None, 250, TIME_BLOCKS),
+        (1, "gal_e5a", e5a, scenes["e5a"], None, 250, 1),
+        (1, "gps_l2c CL long pilot", l2c, scenes["l2c"], L2C_CHANNELS,
+         L2C_EPOCHS, 1),
+        (2, "bds_b1c WB", b1c, scenes["b1c"], None, 100, 1))
+    variants = (corr.STAGED_SUPERBLOCK_VARIANTS if staged
+                else corr.SUPERBLOCK_VARIANTS)
     checks = {}
-    for name, label, cfg, made, channels, n_epochs, n_blocks in cases:
+    for n_pilots, label, cfg, made, channels, n_epochs, n_blocks in cases:
         if channels is None:
             channels = truth(cfg, made[0])
+        name = variants[n_pilots]
         checks.setdefault(name, []).append(superblock_check(
             name, label, cfg, get_signal(cfg.signal), made[1], channels,
-            n_epochs, n_blocks))
+            n_epochs, n_blocks, staged))
     return checks
 
 
@@ -1011,9 +1065,12 @@ def _only(tag, launches, variant, want):
 def time_parallel_path(card: str, made, seq_res):
     """Phase 9 on the main path's record: ``Receiver.run`` with
     ``time_blocks=8`` (flat bank: one superblock-kernel launch per pass),
-    then the per-block path (staged kernel, one launch per epoch step)
-    through ``track_time_parallel``.  Returns the launches of
-    (track_superblock, correlate_windows)."""
+    then the per-block path through ``track_time_parallel``: one staged
+    superblock-kernel launch per pass, then the eager loop in its place
+    (one staged per-epoch kernel launch per epoch step) on the same card.
+    Returns the launches of (track_superblock, track_superblock_staged,
+    correlate_windows)."""
+    import numpy as np
     import torch
     from cusdr_tpu_torch import get_config
     from cusdr_tpu_torch.ops.correlator import LAUNCHES, reset_launches
@@ -1052,61 +1109,90 @@ def time_parallel_path(card: str, made, seq_res):
         f"block-tail mean|I_P|/std(Q_P) {worst_snr:.1f}; lowest per-block "
         f"sign agreement with the sequential run {share:.4f}")
 
-    # the per-block path: staged windows, on the record's first two seconds
+    # the per-block path: staged windows, on the record's first two seconds,
+    # through the staged superblock kernel and then through its plain
+    # version, the eager loop, for the rate before and after in one call
     n_short = TIME_BLOCKS * 250
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    trk_b = track_time_parallel(cfg, sig, iq, res.channels, n_short,
-                                TIME_BLOCKS, device="cuda",
-                                fetch_in_kernel=False)
-    blocks_s = time.perf_counter() - t0
-    launches_b = dict(LAUNCHES)
-    _only("tp-blocks", launches_b, "correlate_windows", 250 * passes)
-    worst_b = _block_tails_locked("tp-blocks", trk_b, 100)
-    share_b = _signs_as_sequential("tp-blocks", trk_b, seq_res.track)
-    log(f"[tp-blocks] per-block path on {card}: {TIME_BLOCKS} blocks x "
-        f"{len(res.channels)} channels x 250 epochs x {passes} passes in "
-        f"{blocks_s:.3f} s = {n_short * 1e-3 / blocks_s:.3f}x real time "
-        f"({blocks_s / (250 * passes) * 1e3:.3f} ms per epoch step), "
-        f"{launches_b['correlate_windows']} correlate_windows launches; "
-        f"lowest block-tail mean|I_P|/std(Q_P) {worst_b:.1f}; lowest "
-        f"per-block sign agreement {share_b:.4f}")
+    blocks = {}
+    for eager in (False, True):
+        variant = "correlate_windows" if eager else "track_superblock_staged"
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        trk_b = track_time_parallel(cfg, sig, iq, res.channels, n_short,
+                                    TIME_BLOCKS, device="cuda",
+                                    fetch_in_kernel=False, epoch_loop=eager)
+        sec = time.perf_counter() - t0
+        launches_b = dict(LAUNCHES)
+        _only("tp-blocks", launches_b, variant,
+              250 * passes if eager else passes)
+        worst_b = _block_tails_locked("tp-blocks", trk_b, 100)
+        share_b = _signs_as_sequential("tp-blocks", trk_b, seq_res.track)
+        blocks[variant] = (launches_b[variant], sec, trk_b)
+        log(f"[tp-blocks] per-block path on {card}, "
+            f"{'eager loop' if eager else 'staged superblock kernel'}: "
+            f"{TIME_BLOCKS} blocks x {len(res.channels)} channels x 250 "
+            f"epochs x {passes} passes in {sec:.3f} s = "
+            f"{n_short * 1e-3 / sec:.3f}x real time "
+            f"({sec / (250 * passes) * 1e3:.3f} ms per epoch step), "
+            f"{launches_b[variant]} {variant} launches; lowest block-tail "
+            f"mean|I_P|/std(Q_P) {worst_b:.1f}; lowest per-block sign "
+            f"agreement {share_b:.4f}")
+    (n_staged, staged_s, trk_s), (n_windows, eager_s, trk_e) = (
+        blocks["track_superblock_staged"], blocks["correlate_windows"])
+    if not np.array_equal(trk_s.blksize, trk_e.blksize):
+        raise AssertionError("[tp-blocks] the eager loop's block sizes "
+                             "differ from the staged kernel's")
     log(f"[tp] real-time factors on {card}: sequential {seq_rt:.3f}x "
         f"({seq_n} epochs), flat time_blocks={TIME_BLOCKS} "
         f"{rec_s / flat_s:.3f}x ({n_ep} epochs), per-block "
-        f"{n_short * 1e-3 / blocks_s:.3f}x ({n_short} epochs)")
-    return launches["track_superblock"], launches_b["correlate_windows"]
+        f"{n_short * 1e-3 / staged_s:.3f}x on the staged superblock kernel "
+        f"and {n_short * 1e-3 / eager_s:.3f}x on the eager loop "
+        f"({n_short} epochs)")
+    return launches["track_superblock"], n_staged, n_windows
 
 
 def staged_pilot_path(card, tag, cfg, made, res, variant, epb, tail):
     """The per-block path on a pilot signal: two blocks of ``epb`` epochs
     of the record ``made`` on the channels ``res`` acquired, through
-    ``track_time_parallel`` with staged windows.  Returns the launches of
-    ``variant``."""
+    ``track_time_parallel`` with staged windows, on the staged superblock
+    kernel ``variant`` (one launch per pass) and then on the eager loop
+    (one launch of its per-epoch kernel per epoch step).  Returns the
+    launches of (``variant``, the per-epoch kernel)."""
     import torch
-    from cusdr_tpu_torch.ops.correlator import LAUNCHES, reset_launches
+    from cusdr_tpu_torch.ops import correlator as corr
     from cusdr_tpu_torch.parallel.timeblocks import track_time_parallel
     from cusdr_tpu_torch.signals.defs import get_signal
     sig = get_signal(cfg.signal)
     passes = cfg.handoff_iters + 1
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    trk = track_time_parallel(cfg, sig, made[1], res.channels, 2 * epb, 2,
-                              device="cuda", fetch_in_kernel=False)
-    sec = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
-    _only(tag, launches, variant, epb * passes)
-    worst = _block_tails_locked(tag, trk, tail, pilot=True)
+    per_epoch = corr.WINDOW_VARIANTS[
+        corr.STAGED_SUPERBLOCK_VARIANTS.index(variant)]
     rec_s = 2 * epb * sig.code_period_ms * 1e-3
-    log(f"[{tag}] per-block path on {card}: 2 blocks x "
-        f"{len(res.channels)} channels x {epb} epochs of "
-        f"{sig.code_period_ms:g} ms x {passes} passes in {sec:.3f} s = "
-        f"{rec_s / sec:.3f}x real time, {launches[variant]} {variant} "
-        f"launches; lowest block-tail prompt SNR (data and pilot) "
-        f"{worst:.1f}")
-    return launches[variant]
+    counts, rates = [], []
+    for eager in (False, True):
+        name = per_epoch if eager else variant
+        torch.cuda.synchronize()
+        corr.reset_launches()
+        t0 = time.perf_counter()
+        trk = track_time_parallel(cfg, sig, made[1], res.channels, 2 * epb,
+                                  2, device="cuda", fetch_in_kernel=False,
+                                  epoch_loop=eager)
+        sec = time.perf_counter() - t0
+        launches = dict(corr.LAUNCHES)
+        _only(tag, launches, name, epb * passes if eager else passes)
+        worst = _block_tails_locked(tag, trk, tail, pilot=True)
+        counts.append(launches[name])
+        rates.append(rec_s / sec)
+        log(f"[{tag}] per-block path on {card}, "
+            f"{'eager loop' if eager else 'staged superblock kernel'}: "
+            f"2 blocks x {len(res.channels)} channels x {epb} epochs of "
+            f"{sig.code_period_ms:g} ms x {passes} passes in {sec:.3f} s = "
+            f"{rec_s / sec:.3f}x real time, {launches[name]} {name} "
+            f"launches; lowest block-tail prompt SNR (data and pilot) "
+            f"{worst:.1f}")
+    log(f"[{tag}] real-time factors on {card}: staged superblock kernel "
+        f"{rates[0]:.3f}x, eager loop {rates[1]:.3f}x")
+    return tuple(counts)
 
 
 def pvt_time_parallel(card: str, made):
@@ -1127,7 +1213,7 @@ def pvt_time_parallel(card: str, made):
 
 def profiles(card: str):
     """Phase 3d: the per-epoch profile of the eager loop and the
-    per-superblock profile of the superblock kernel for each path's bank
+    per-superblock profile of the superblock kernels for each path's bank
     (cusdr_tpu_torch/runtime/profiling.py)."""
     from cusdr_tpu_torch import get_config
     from cusdr_tpu_torch.runtime.profiling import (
@@ -1150,6 +1236,18 @@ def profiles(card: str):
         [sys.executable, "-m", "cusdr_tpu_torch.runtime.profiling",
          "--signal", "gps_l1ca", "--epochs", "1000"], cwd=ROOT,
         capture_output=True, text=True, timeout=300)
+    if fresh.returncode != 0:
+        raise AssertionError(f"[profile] the profiling tool failed:\n"
+                             f"{fresh.stdout}\n{fresh.stderr}")
+    log(f"[profile] on {card}, in a process of its own: "
+        f"{fresh.stdout.strip().splitlines()[-1]}")
+    # and the staged superblock kernel on the per-block path's 96-row bank
+    # (a pass of phase 9's per-block run)
+    fresh = subprocess.run(
+        [sys.executable, "-m", "cusdr_tpu_torch.runtime.profiling",
+         "--signal", "gps_l1ca", "--blocks", str(TIME_BLOCKS), "--epochs",
+         "250", "--staged"], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
     if fresh.returncode != 0:
         raise AssertionError(f"[profile] the profiling tool failed:\n"
                              f"{fresh.stdout}\n{fresh.stderr}")
@@ -1369,11 +1467,15 @@ def _kernel_json(name, launches, checks):
                    plain_wrapper_ms=r["plain_wrapper_ms"],
                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                    bytes=r["bytes"], operations=r["ops"],
-                   # phase 3e: blocks per row, elements that differ from
-                   # the eager loop's, and both with one block per row
+                   # phases 3e, 3f: blocks per row, elements that differ
+                   # from the eager loop's, and both with one block per
+                   # row; 3f: slow-path epochs and the fetch superblock
+                   # kernel's time on the same bank
                    **{key: r[key] for key in (
                        "cluster", "n_diff", "n_diff_one_block",
-                       "device_ms_one_block") if key in r})
+                       "device_ms_one_block", "slow_epochs",
+                       "slow_epochs_one_block", "fetch_ms",
+                       "fetch_ms_one_block") if key in r})
               for c in checks for interp, r in c["rows"].items()]
     source, replaces, _ = KERNELS[name]
     return {
@@ -1430,6 +1532,7 @@ def main() -> int:
     launches = {r["name"]: r["loop_launches"] for r in tool}
     profiled = profiles(smi)
     checks.update(superblock_checks(scenes))
+    checks.update(superblock_checks(scenes, staged=True))
     from cusdr_tpu_torch import get_config
     b1c_cfg = get_config("bds_b1c", **B1C_WB)
     launches["track_superblock"], seq_res = main_path(smi, scenes["main"])
@@ -1448,14 +1551,17 @@ def main() -> int:
         smi, "b1c-wb", b1c_cfg, scenes["b1c"], b1c_res,
         "correlate_bank_dual_pilot", 100)
     pvt_pilot(smi, scenes["l5"])
-    tp_bank, launches["correlate_windows"] = time_parallel_path(
+    (tp_bank, launches["track_superblock_staged"],
+     launches["correlate_windows"]) = time_parallel_path(
         smi, scenes["main"], seq_res)
-    launches["correlate_windows_pilot"] = staged_pilot_path(
+    (launches["track_superblock_staged_pilot"],
+     launches["correlate_windows_pilot"]) = staged_pilot_path(
         smi, "e5a-blocks", get_config("gal_e5a"), scenes["e5a"], e5a_res,
-        "correlate_windows_pilot", epb=500, tail=200)
-    launches["correlate_windows_dual_pilot"] = staged_pilot_path(
-        smi, "b1c-wb-blocks", b1c_cfg, scenes["b1c"], b1c_res, "correlate_windows_dual_pilot", epb=100,
-        tail=50)
+        "track_superblock_staged_pilot", epb=500, tail=200)
+    (launches["track_superblock_staged_dual_pilot"],
+     launches["correlate_windows_dual_pilot"]) = staged_pilot_path(
+        smi, "b1c-wb-blocks", b1c_cfg, scenes["b1c"], b1c_res,
+        "track_superblock_staged_dual_pilot", epb=100, tail=50)
     pvt_time_parallel(smi, scenes["pvt"])
     missing = [name for name in checks if not launches.get(name)]
     if missing:

@@ -27,6 +27,14 @@ Its plain version is the eager epoch loop of tracking/engine.py
 (``track_superblock_epochs``), which calls ``correlate_bank`` once per
 epoch; the engine picks between the two by where the record lies.
 
+``csrc/superblock_staged.cu`` — ``track_superblock_staged_bank`` is the
+same redesign of ``correlate_windows``: one launch per superblock, each
+epoch's windows staged into a ring in shared memory by asynchronous bulk
+copies that run ahead of the sums and across the loop closing
+(``stage_plan`` lays the ring out).  Its plain version is the eager loop on
+staged windows (``fetch_in_kernel=False``), which calls
+``correlate_windows`` once per epoch.
+
 On a CUDA tensor a wrapper launches its kernel (built with nvcc for sm_90a
 at first use, loaded with ctypes, launched on PyTorch's current stream) or
 raises; on a CPU tensor it runs the ``*_plain`` version beside it
@@ -59,6 +67,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -67,9 +76,10 @@ _TWO_PI = float(np.float32(2.0 * np.pi))
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-# kernel sources by library name; all include correlator_common.cuh
-SOURCES = ("correlator", "correlator_staged", "superblock")
-_HEADER = "correlator_common.cuh"
+# kernel sources by library name; all include correlator_common.cuh, the
+# superblock kernels superblock_common.cuh
+SOURCES = ("correlator", "correlator_staged", "superblock",
+           "superblock_staged")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the u·v kernels keep u (2 * ceil(blk / 128) floats) and v (256 floats) in
@@ -84,6 +94,9 @@ WINDOW_VARIANTS = ("correlate_windows", "correlate_windows_pilot",
                    "correlate_windows_dual_pilot")
 SUPERBLOCK_VARIANTS = ("track_superblock", "track_superblock_pilot",
                        "track_superblock_dual_pilot")
+STAGED_SUPERBLOCK_VARIANTS = ("track_superblock_staged",
+                              "track_superblock_staged_pilot",
+                              "track_superblock_staged_dual_pilot")
 # streaming multiprocessors of the H100: a bank takes as many thread blocks
 # per channel row (a cluster, at most 8) as fit on the card at once
 N_SMS = 132
@@ -91,7 +104,7 @@ N_SMS = 132
 # to show each path ran on its kernel)
 LAUNCHES = dict.fromkeys(VARIANTS + WINDOW_VARIANTS + (
     "correlate_windows_ramp", "correlate_windows_table")
-    + SUPERBLOCK_VARIANTS, 0)
+    + SUPERBLOCK_VARIANTS + STAGED_SUPERBLOCK_VARIANTS, 0)
 
 
 def reset_launches() -> None:
@@ -145,6 +158,12 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
             "track_superblock_args_size": [],
             "track_superblock_launch": [
                 ctypes.POINTER(SuperblockArgs), i32, i32, i32, p]}
+    elif name == "superblock_staged":
+        signatures = {
+            "track_superblock_staged_args_size": [],
+            "track_superblock_staged_launch": [
+                ctypes.POINTER(SuperblockArgs), i32, i32, i32,
+                i32, i32, i32, i32, i32, i32, p, p]}
     else:
         signatures = {
             "correlate_windows_launch": [
@@ -164,15 +183,16 @@ def load_library(name: str = "correlator") -> ctypes.CDLL:
     """Build (once per source version) and load the kernel library
     ``name`` (one of ``SOURCES``).
 
-    The shared object is named by a hash of the source, the shared header
+    The shared object is named by a hash of the source, the shared headers
     and the flags, so an edited source is rebuilt; the compiler's register
     and spill report is kept beside it as ``<name>.log``."""
     if name not in SOURCES:
         raise ValueError(f"no kernel source {name!r}; have {SOURCES}")
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + (CSRC_DIR / _HEADER).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(
+        src.read_bytes()
+        + b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()
     so = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -186,9 +206,10 @@ def load_library(name: str = "correlator") -> ctypes.CDLL:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     _declare(lib, name)
-    if name == "superblock" and (lib.track_superblock_args_size()
-                                 != ctypes.sizeof(SuperblockArgs)):
-        raise RuntimeError("SuperblockArgs differs from csrc/superblock.cu's")
+    if name.startswith("superblock") and (
+            getattr(lib, f"track_{name}_args_size")()
+            != ctypes.sizeof(SuperblockArgs)):
+        raise RuntimeError(f"SuperblockArgs differs from csrc/{name}.cu's")
     return lib
 
 
@@ -653,35 +674,21 @@ def cluster_size(n_rows: int) -> int:
     return 1
 
 
-def track_superblock_bank(iq, sb_start: int, table, ptable, state_f64,
-                          abs_sample, pilot_period, active, end_sample,
-                          n_epochs: int, params, *, up_margin: int,
-                          cluster=None):
-    """Track a channel bank through ``n_epochs`` epochs in one kernel
-    launch (csrc/superblock.cu).  CUDA tensors only: a build or launch
-    failure raises, and on the CPU the caller runs the eager epoch loop.
-
-    iq: [2S] int8 interleaved I/Q record, sample 0 at absolute index
-    ``sb_start``; table: [R, L] int8 replica tables, ptable: None, [R, Lp]
-    or [R, 2, Lp] pilot tables (row c reads table row c % R); state_f64:
-    [12, C] f64, ``ChannelState``'s f64 fields in order; abs_sample [C]
-    int64, pilot_period [C] int32, active [C] bool; end_sample: [C] int64
-    absolute end of each row's record; params: the engine's
-    ``TrackParams`` (block size, spacing, tap mode, loop constants and
-    pilot settings, read by name); up_margin: the tables' front margin
-    [samples].  ``cluster``: thread blocks per row (1, 2, 4, 8), default
-    ``cluster_size(C)``.
-
-    Returns (state_f64, abs_sample, pilot_period, active) after the last
-    epoch and the output stacks (o32 [E, 12, C] f32, o64 [E, 4, C] f64,
-    oi [E, 2, C] int64), laid out as the eager loop's."""
+def _superblock_args(name, iq, sb_start, table, ptable, state_f64,
+                     abs_sample, pilot_period, active, end_sample, n_epochs,
+                     params, up_margin):
+    """Check what the superblock kernels take and make one launch's
+    ``SuperblockArgs`` and output tensors (arguments as
+    ``track_superblock_bank``).  Returns (args, n_pilots, the new state
+    (f64, abs_sample, pilot_period, active), the output stacks (o32, o64,
+    oi)); ``args`` points into the returned tensors."""
     dev = iq.device
     blk, k = params.blk, params.k_spacing
     if dev.type != "cuda":
         raise ValueError(f"the superblock kernel takes CUDA tensors, iq is "
                          f"on {dev}")
     banks = (table,) if ptable is None else (table, ptable)
-    _on_card("track_superblock", iq, *banks)
+    _on_card(name, iq, *banks)
     if iq.dtype != torch.int8 or iq.dim() != 1 or iq.numel() % 2:
         raise ValueError("iq must be a 1-D int8 tensor of interleaved I/Q")
     if table.dtype != torch.int8 or table.dim() != 2:
@@ -699,10 +706,6 @@ def track_superblock_bank(iq, sb_start: int, table, ptable, state_f64,
         raise ValueError(f"state and tables must be on {dev}")
     if n_epochs < 1 or k < 1:
         raise ValueError(f"n_epochs={n_epochs} and k={k} must be >= 1")
-    if blk > MAX_BLK:
-        raise ValueError(f"blk={blk} exceeds the kernel's {MAX_BLK}: its "
-                         "carrier factors would overflow 48 KB of shared "
-                         "memory")
     win = blk + 2 * k + 1
     if iq.numel() // 2 < blk or table.shape[1] < win:
         raise ValueError("record or replica table shorter than one window")
@@ -716,28 +719,24 @@ def track_superblock_bank(iq, sb_start: int, table, ptable, state_f64,
                              "R as table's, Lp at least one window")
         n_pilots = ptable.dim() - 1
         p_len = int(ptable.shape[-1])
-    if cluster is None:
-        cluster = cluster_size(c)
     state_f64, abs_sample, pilot_period, active, end_sample = (
         x.contiguous() for x in (state_f64, abs_sample, pilot_period,
                                  active, end_sample))
-    new_f64 = torch.empty_like(state_f64)
-    new_abs = torch.empty_like(abs_sample)
-    new_pper = torch.empty_like(pilot_period)
-    new_active = torch.empty_like(active)
-    o32 = torch.empty((n_epochs, 12, c), dtype=torch.float32, device=dev)
-    o64 = torch.empty((n_epochs, 4, c), dtype=torch.float64, device=dev)
-    oi = torch.empty((n_epochs, 2, c), dtype=torch.int64, device=dev)
+    new = (torch.empty_like(state_f64), torch.empty_like(abs_sample),
+           torch.empty_like(pilot_period), torch.empty_like(active))
+    outs = (torch.empty((n_epochs, 12, c), dtype=torch.float32, device=dev),
+            torch.empty((n_epochs, 4, c), dtype=torch.float64, device=dev),
+            torch.empty((n_epochs, 2, c), dtype=torch.int64, device=dev))
     two_pi = 2.0 * np.pi
     args = SuperblockArgs(
         iq=iq.data_ptr(), table=table.data_ptr(),
         ptable=None if ptable is None else ptable.data_ptr(),
         state_in=state_f64.data_ptr(), abs_in=abs_sample.data_ptr(),
         pper_in=pilot_period.data_ptr(), active_in=active.data_ptr(),
-        end_sample=end_sample.data_ptr(), state_out=new_f64.data_ptr(),
-        abs_out=new_abs.data_ptr(), pper_out=new_pper.data_ptr(),
-        active_out=new_active.data_ptr(), o32=o32.data_ptr(),
-        o64=o64.data_ptr(), oi=oi.data_ptr(),
+        end_sample=end_sample.data_ptr(), state_out=new[0].data_ptr(),
+        abs_out=new[1].data_ptr(), pper_out=new[2].data_ptr(),
+        active_out=new[3].data_ptr(), o32=outs[0].data_ptr(),
+        o64=outs[1].data_ptr(), oi=outs[2].data_ptr(),
         sb_start=int(sb_start), n_samples=iq.numel() // 2,
         table_len=int(table.shape[1]), ptable_len=p_len,
         # the eager loop divides tensors by these host scalars, which
@@ -760,9 +759,215 @@ def track_superblock_bank(iq, sb_start: int, table, ptable, state_f64,
         pll_order=int(params.pll_order), pilot_rot=int(params.pilot_rot) % 4,
         pilot2_rot=int(params.pilot2_rot) % 4,
         pilot_period_mod=int(params.pilot_period_mod))
+    # the (possibly new) contiguous inputs live as long as the structure
+    # that points into them, past the launch
+    args.inputs = (state_f64, abs_sample, pilot_period, active, end_sample)
+    return args, n_pilots, new, outs
+
+
+def track_superblock_bank(iq, sb_start: int, table, ptable, state_f64,
+                          abs_sample, pilot_period, active, end_sample,
+                          n_epochs: int, params, *, up_margin: int,
+                          cluster=None):
+    """Track a channel bank through ``n_epochs`` epochs in one kernel
+    launch (csrc/superblock.cu).  CUDA tensors only: a build or launch
+    failure raises, and on the CPU the caller runs the eager epoch loop.
+
+    iq: [2S] int8 interleaved I/Q record, sample 0 at absolute index
+    ``sb_start``; table: [R, L] int8 replica tables, ptable: None, [R, Lp]
+    or [R, 2, Lp] pilot tables (row c reads table row c % R); state_f64:
+    [12, C] f64, ``ChannelState``'s f64 fields in order; abs_sample [C]
+    int64, pilot_period [C] int32, active [C] bool; end_sample: [C] int64
+    absolute end of each row's record; params: the engine's
+    ``TrackParams`` (block size, spacing, tap mode, loop constants and
+    pilot settings, read by name); up_margin: the tables' front margin
+    [samples].  ``cluster``: thread blocks per row (1, 2, 4, 8), default
+    ``cluster_size(C)``.
+
+    Returns (state_f64, abs_sample, pilot_period, active) after the last
+    epoch and the output stacks (o32 [E, 12, C] f32, o64 [E, 4, C] f64,
+    oi [E, 2, C] int64), laid out as the eager loop's."""
+    if params.blk > MAX_BLK:
+        raise ValueError(f"blk={params.blk} exceeds the kernel's {MAX_BLK}: "
+                         "its carrier factors would overflow 48 KB of shared "
+                         "memory")
+    args, n_pilots, new, outs = _superblock_args(
+        "track_superblock", iq, sb_start, table, ptable, state_f64,
+        abs_sample, pilot_period, active, end_sample, n_epochs, params,
+        up_margin)
+    if cluster is None:
+        cluster = cluster_size(state_f64.shape[1])
     rc = load_library("superblock").track_superblock_launch(
         ctypes.byref(args), int(bool(params.interp_taps)), n_pilots,
-        int(cluster),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(cluster), torch.cuda.current_stream(iq.device).cuda_stream)
     _launched(SUPERBLOCK_VARIANTS[n_pilots], rc)
-    return (new_f64, new_abs, new_pper, new_active), (o32, o64, oi)
+    return new, outs
+
+
+# --------------------------------------------------------------------------
+# One launch per superblock, windows staged into shared memory
+# --------------------------------------------------------------------------
+
+# shared memory a thread block of the H100 may opt into (227 KB), less what
+# the staged superblock kernel holds statically (reduction partials, totals,
+# the row's state and geometry, the ring's barriers and stage records:
+# 2.5 KB at most)
+SMEM_BUDGET = 232448 - 4096
+MAX_STAGES = 4             # stages in the ring (the kernel takes up to 8)
+# the prefetched replica starts: the predicted start less 1 to plus 2
+# (csrc/superblock_staged.cu kSpreadLo, kSpreadHi); the sample window two
+# epochs ahead: the predicted start +-2 (kSampleSpread)
+PREFETCH_SPREAD = (1, 2)
+SAMPLE_SPREAD = 4
+_STAGE_ALIGN = 16          # bulk copies move whole aligned 16-byte units
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class StagePlan(NamedTuple):
+    """The staged superblock kernel's ring: ``chunk`` samples per stage
+    (a multiple of the kernel's 512 threads), ``n_stages`` stages,
+    ``per_rank`` chunks of an epoch per thread block (one block per row, or
+    each block of a cluster), and the bytes of a stage's sample buffer, of
+    its buffer per replica bank and of the carrier factors ahead of the
+    ring."""
+    chunk: int
+    n_stages: int
+    per_rank: int
+    samp_bytes: int
+    rep_bytes: int
+    uv_bytes: int
+
+    def stage_bytes(self, n_pilots: int) -> int:
+        return self.samp_bytes + (1 + n_pilots) * self.rep_bytes
+
+    def smem_bytes(self, n_pilots: int) -> int:
+        """Dynamic shared memory of one thread block."""
+        return self.uv_bytes + self.n_stages * self.stage_bytes(n_pilots)
+
+
+def stage_plan(blk: int, k: int, n_pilots: int, cluster: int) -> StagePlan:
+    """Lay out the staged superblock kernel's ring for windows of ``blk``
+    samples, E-L spacing ``k``, ``n_pilots`` pilot banks and ``cluster``
+    thread blocks per row: each block's share of the window in the fewest
+    runs (chunks) of which two stages fit in ``SMEM_BUDGET`` beside the
+    carrier factors, and as many stages as fit, 2 to ``MAX_STAGES`` and at
+    most an epoch's chunks + 1.  A chunk is a whole number of the block's
+    512-thread strides (a cluster's, of 128-sample carrier steps).  A
+    sample buffer holds a chunk's 2·chunk bytes plus the prefetch's spread,
+    a replica buffer the chunk + 2k + 1 bytes its taps read plus the spread,
+    each widened to the 16-byte grid.  Fewer chunks mean fewer waits and
+    copies per epoch: with one, the producer copies only while the epoch is
+    closed.  Raises ValueError when no chunk of one stride fits twice."""
+    share = -(-blk // cluster)
+    step = 512 if cluster == 1 else 128
+    pad = 2 * (_STAGE_ALIGN - 1)          # an unaligned start and end
+    uv = _round_up(4 * (2 * -(-blk // 128) + 2 * 128), 128)
+    for runs in range(1, -(-share // step) + 1):
+        chunk = _round_up(-(-share // runs), step)
+        samp = _round_up(2 * (chunk + SAMPLE_SPREAD) + pad, _STAGE_ALIGN)
+        rep = _round_up(chunk + 2 * k + 1 + sum(PREFETCH_SPREAD) + pad,
+                        _STAGE_ALIGN)
+        stage = samp + (1 + n_pilots) * rep
+        if uv + 2 * stage <= SMEM_BUDGET:
+            per_rank = -(-(-(-blk // chunk)) // cluster)
+            n_stages = min(MAX_STAGES, per_rank + 1,
+                           (SMEM_BUDGET - uv) // stage)
+            return StagePlan(chunk, n_stages, per_rank, samp, rep, uv)
+    raise ValueError(f"blk={blk}: two stages of {step} samples and {uv} "
+                     f"bytes of carrier factors exceed the {SMEM_BUDGET} "
+                     f"bytes of shared memory")
+
+
+def staged_ranges(plan: StagePlan, j: int, rank: int, offs, starts,
+                  k: int, blk: int):
+    """What the kernel copies for chunk ``j`` of block ``rank``'s run of an
+    epoch (``issue_chunk`` of csrc/superblock_staged.cu): per buffer (the
+    samples at a window offset within ``offs`` = (least, greatest); a
+    replica bank per ``(lo, hi)`` in ``starts``, its window's least and
+    greatest start), the byte range [x0, x1) asked for and the first byte
+    ``lo`` of its aligned copy, in units of the tensor's bytes from the
+    window's sample 0 / tap E of sample 0 at start 0.  Returns
+    [(lo, x0, x1)]; all zero past the window."""
+    n0 = (rank * plan.per_rank + j) * plan.chunk
+    n1 = min(n0 + plan.chunk, blk)
+    if n0 >= n1:
+        return [(0, 0, 0)] * (1 + len(starts))
+    out = [(2 * (offs[0] + n0), 2 * (offs[1] + n1))]
+    out += [(lo + n0, hi + n1 + 2 * k + 1) for lo, hi in starts]
+    return [(x0 // _STAGE_ALIGN * _STAGE_ALIGN, x0, x1) for x0, x1 in out]
+
+
+def prefetch_window(ahead: int, abs_sample: int, blksize: int,
+                    pilot_period: int, code_freq_basis: float, params, *,
+                    sb_start: int, n_samples: int, up_margin: int,
+                    table_len: int, ptable_len: int):
+    """The windows the staged superblock kernel copies for epoch e +
+    ``ahead`` (1 or 2) while epoch e runs (``ahead_window`` of
+    csrc/superblock_staged.cu), from epoch e's state (``abs_sample``,
+    ``pilot_period``, ``code_freq_basis``) and block size: ((least,
+    greatest) sample window start in the record, (least, greatest) data
+    replica start, the same of the pilot windows or None).  An epoch whose
+    exact starts lie outside them reads its chunks from device memory (the
+    kernel's slow path)."""
+    k, blk = params.k_spacing, params.blk
+    win = blk + 2 * k + 1
+
+    def clamp(x, size, width):
+        """``clamp_start`` of csrc/superblock_common.cuh (``_clamp``)."""
+        return min(max(x + size if x < 0 else x, 0), size - width)
+
+    off = clamp(abs_sample + ahead * blksize - sb_start, n_samples, blk)
+    spread = SAMPLE_SPREAD // 2 if ahead > 1 else 0
+    offs = (max(off - spread, 0), min(off + spread, n_samples - blk))
+    below, above = PREFETCH_SPREAD
+
+    def span(base, size):
+        return clamp(base - below, size, win), clamp(base + above, size, win)
+
+    base = up_margin - k
+    data = span(base, table_len)
+    if not params.has_pilot:
+        return offs, data, None
+    pbase = base
+    if params.pilot_period_mod > 1:
+        period = (int(pilot_period) + ahead) % params.pilot_period_mod
+        pbase += int(np.floor((period * float(params.code_len))
+                              / (code_freq_basis * (1.0 / params.fs))))
+    return offs, data, span(pbase, ptable_len)
+
+
+def track_superblock_staged_bank(iq, sb_start: int, table, ptable,
+                                 state_f64, abs_sample, pilot_period, active,
+                                 end_sample, n_epochs: int, params, *,
+                                 up_margin: int, cluster=None):
+    """``track_superblock_bank`` with the windows staged into shared memory
+    (csrc/superblock_staged.cu): the same arguments and results, the same
+    arithmetic as the eager loop on staged windows
+    (``fetch_in_kernel=False``).  CUDA tensors only, each starting on a
+    16-byte boundary (bulk copies need it); a build or launch failure
+    raises.  Returns also ``slow`` [C] int32: the epochs (summed over a
+    row's blocks) in which a chunk missed the prefetched windows and was
+    read from device memory."""
+    args, n_pilots, new, outs = _superblock_args(
+        "track_superblock_staged", iq, sb_start, table, ptable, state_f64,
+        abs_sample, pilot_period, active, end_sample, n_epochs, params,
+        up_margin)
+    sources = (iq, table) + (() if ptable is None else (ptable,))
+    if any(x.data_ptr() % _STAGE_ALIGN for x in sources):
+        raise ValueError("the staged superblock kernel copies from 16-byte "
+                         "aligned tensors: iq, table and ptable must start "
+                         "on a 16-byte boundary")
+    c = state_f64.shape[1]
+    if cluster is None:
+        cluster = cluster_size(c)
+    plan = stage_plan(params.blk, params.k_spacing, n_pilots, int(cluster))
+    slow = torch.zeros(c, dtype=torch.int32, device=iq.device)
+    rc = load_library("superblock_staged").track_superblock_staged_launch(
+        ctypes.byref(args), int(bool(params.interp_taps)), n_pilots,
+        int(cluster), *plan, slow.data_ptr(),
+        torch.cuda.current_stream(iq.device).cuda_stream)
+    _launched(STAGED_SUPERBLOCK_VARIANTS[n_pilots], rc)
+    return new, outs, slow

@@ -1,7 +1,8 @@
 // Device code shared by the correlator kernels (Hopper, sm_90a):
 // correlator.cu (one epoch, windows fetched in the kernel from the record
 // and tables), correlator_staged.cu (one epoch, windows staged before the
-// kernel) and superblock.cu (every epoch of a superblock in one launch).
+// kernel), superblock.cu and superblock_staged.cu (every epoch of a
+// superblock in one launch; their closing code is superblock_common.cuh).
 //
 // One thread block correlates one channel row: `correlate_row` walks the
 // row's valid samples, wipes the carrier off with the cos/sin a Carrier
@@ -117,25 +118,29 @@ __host__ __device__ constexpr int sums_of(int pilots) {
 }
 
 // Per-thread partial sums over samples n_begin + threadIdx.x, + kThreads,
-// ... below n_end, added to acc[sums_of(kPilots)].
+// ... below n_end, added to acc[sums_of(kPilots)].  The windows x, w, pw0,
+// pw1 hold sample n at index n - n_base (n_base = 0: the whole window;
+// superblock_staged.cu passes a chunk staged in shared memory); the carrier
+// is indexed by n.
 template <bool kInterp, int kPilots, class Carrier>
 __device__ __forceinline__ void accumulate_row(
     const char2* __restrict__ x, const int8_t* __restrict__ w,
     const int8_t* __restrict__ pw0, const int8_t* __restrict__ pw1,
     float alpha, float palpha, int n_begin, int n_end, int k,
-    const Carrier& carrier, float* __restrict__ acc) {
+    const Carrier& carrier, float* __restrict__ acc, int n_base = 0) {
   const int8_t* pw[2] = {pw0, pw1};
   for (int n = n_begin + threadIdx.x; n < n_end; n += kThreads) {
-    const char2 s = x[n];
+    const int i = n - n_base;
+    const char2 s = x[i];
     const float si = static_cast<float>(s.x);
     const float sq = static_cast<float>(s.y);
     float cw, sw;
     carrier(n, &cw, &sw);
     const float bi = si * cw + sq * sw;
     const float bq = sq * cw - si * sw;
-    const float e = tap<kInterp>(w, n, alpha);
-    const float p = tap<kInterp>(w, n + k, alpha);
-    const float lt = tap<kInterp>(w, n + 2 * k, alpha);
+    const float e = tap<kInterp>(w, i, alpha);
+    const float p = tap<kInterp>(w, i + k, alpha);
+    const float lt = tap<kInterp>(w, i + 2 * k, alpha);
     acc[0] += e * bi;
     acc[1] += e * bq;
     acc[2] += p * bi;
@@ -144,9 +149,9 @@ __device__ __forceinline__ void accumulate_row(
     acc[5] += lt * bq;
 #pragma unroll
     for (int bank = 0; bank < kPilots; ++bank) {
-      const float pe = tap<kInterp>(pw[bank], n, palpha);
-      const float pp = tap<kInterp>(pw[bank], n + k, palpha);
-      const float pl = tap<kInterp>(pw[bank], n + 2 * k, palpha);
+      const float pe = tap<kInterp>(pw[bank], i, palpha);
+      const float pp = tap<kInterp>(pw[bank], i + k, palpha);
+      const float pl = tap<kInterp>(pw[bank], i + 2 * k, palpha);
       float* a = acc + 6 * (bank + 1);
       a[0] += pe * bi;
       a[1] += pe * bq;

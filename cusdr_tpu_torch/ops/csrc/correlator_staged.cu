@@ -9,8 +9,9 @@
 //       cusdr_tpu/ops/correlator.py (Pallas call built by `_build_call`,
 //       body `_correlate_block`): carrier as u[t] v[l] factors from
 //       remc / shi / slo, no pilot, pilot or dual pilot windows, both tap
-//       modes.  The tracking engine's staged path (fetch_in_kernel = False:
-//       the per-block time-parallel bank) runs it.
+//       modes.  It is the per-epoch step of the eager loop on staged
+//       windows (fetch_in_kernel = False), the CPU's path and the plain
+//       version of superblock_staged.cu, which runs the card's.
 //   correlate_windows_ramp_launch   replaces `make_correlate_kernel` of
 //       tools/perf_pallas.py: no pilot, interpolated taps, carrier from a
 //       per-sample phase remc + shi * floor(n / 256) + slo * (n mod 256)
@@ -37,8 +38,9 @@
 // is that file's: 512-thread blocks, every sample touched once with
 // coalesced loads, register accumulators, a fixed-order block reduction.
 // The staging itself (a gather of C x blk samples in PyTorch before the
-// launch) costs more than the kernel; the engine's main path avoids it by
-// fetching in the kernel (correlator.cu).
+// launch) costs more than the kernel; on the card the engine avoids it:
+// superblock_staged.cu stages each epoch's windows itself, by bulk copies
+// into shared memory, for every epoch of a superblock in one launch.
 
 #include "correlator_common.cuh"
 

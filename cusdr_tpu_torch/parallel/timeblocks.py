@@ -21,7 +21,8 @@ paid once for B epochs of record.  Two modes compose:
 Two ways to run a pass, as in the reference: the flat bank over the whole
 record on the device, windows fetched by the kernel (``_track_blocks_flat``,
 the default), and the per-block path over per-block sample buffers with
-windows staged before the kernel (``_track_blocks``).  The reference vmaps
+windows staged (``_track_blocks``); on a card each is one superblock-kernel
+launch per pass.  The reference vmaps
 its per-block path; here the blocks' buffers are concatenated into one
 pseudo-record and run as one flat bank with a per-row record end, as the
 reference's sharded body does.  Sharding the block axis over several
@@ -40,7 +41,7 @@ from ..signals.defs import SignalDef
 from ..tracking.engine import (ChannelState, TrackOutputs, TrackParams,
                                TrackResults, build_replica_tables,
                                init_channel_state, make_track_params,
-                               track_superblock)
+                               track_superblock, track_superblock_epochs)
 
 # correlator outputs that flip with a block's Costas lock sign
 _SIGNED = {"i_e", "q_e", "i_p", "q_p", "i_l", "q_l", "pilot_ip", "pilot_qp"}
@@ -54,14 +55,16 @@ def _ring_shift(states0: ChannelState, final: ChannelState) -> ChannelState:
 
 
 def _track_bank_of_blocks(rec, tables, ptables, states: ChannelState,
-                          params: TrackParams, n_epochs: int, end_sample):
+                          params: TrackParams, n_epochs: int, end_sample,
+                          epoch_loop: bool = False):
     """``track_superblock`` over the [B, C] states as one B·C-row bank on
-    the record ``rec`` (sb_start 0).  Returns (states [B, C], outputs
-    [B, n_epochs, C])."""
+    the record ``rec`` (sb_start 0); ``track_superblock_epochs`` with
+    ``epoch_loop``.  Returns (states [B, C], outputs [B, n_epochs, C])."""
     b, c = states.abs_sample.shape
     flat = ChannelState(*(x.reshape(b * c) for x in states))
-    st, outs = track_superblock(rec, 0, tables, ptables, flat, params,
-                                n_epochs, end_sample)
+    track = track_superblock_epochs if epoch_loop else track_superblock
+    st, outs = track(rec, 0, tables, ptables, flat, params, n_epochs,
+                     end_sample)
     st = ChannelState(*(x.reshape(b, c) for x in st))
     outs = TrackOutputs(*(x.reshape(n_epochs, b, c).permute(1, 0, 2)
                           for x in outs))
@@ -69,7 +72,8 @@ def _track_bank_of_blocks(rec, tables, ptables, states: ChannelState,
 
 
 def _track_blocks_flat(samples_iq, tables, ptables, states: ChannelState,
-                       params: TrackParams, n_epochs: int, n_blocks: int):
+                       params: TrackParams, n_epochs: int, n_blocks: int,
+                       epoch_loop: bool = False):
     """The B concurrent blocks as ONE B·C-row bank over the full record:
     ``abs_sample`` already positions every block, the kernel reads its
     windows straight from the record, the replica tables are shared by row
@@ -81,14 +85,17 @@ def _track_blocks_flat(samples_iq, tables, ptables, states: ChannelState,
         raise ValueError(f"states hold {states.abs_sample.shape[0]} blocks, "
                          f"n_blocks={n_blocks}")
     return _track_bank_of_blocks(samples_iq, tables, ptables, states,
-                                 params, n_epochs, None)
+                                 params, n_epochs, None, epoch_loop)
 
 
 def _track_blocks(samples_blocks, block_starts, block_ends, tables, ptables,
-                  states: ChannelState, params: TrackParams, n_epochs: int):
+                  states: ChannelState, params: TrackParams, n_epochs: int,
+                  epoch_loop: bool = False):
     """The per-block path: every block tracks inside its own sample
-    buffer, with the windows staged before the kernel
-    (``fetch_in_kernel=False``).
+    buffer, with the windows staged (``fetch_in_kernel=False``): on a card
+    one launch of the staged superblock kernel per pass, which copies each
+    epoch's windows into shared memory; on the CPU the eager loop, which
+    gathers them before its per-epoch kernel.
 
     samples_blocks: [B, 2·S_blk] int8 interleaved block buffers;
     block_starts / block_ends: [B] int64 absolute sample range of each
@@ -105,7 +112,7 @@ def _track_blocks(samples_blocks, block_starts, block_ends, tables, ptables,
     end_rows = (block_ends - offs)[:, None].expand(b, c).reshape(b * c)
     st, outs = _track_bank_of_blocks(samples_blocks.reshape(-1), tables,
                                      ptables, st, params, n_epochs,
-                                     end_rows)
+                                     end_rows, epoch_loop)
     st = st._replace(abs_sample=st.abs_sample + offs[:, None])
     outs = outs._replace(abs_sample=outs.abs_sample + offs[:, None, None])
     return st, outs
@@ -155,7 +162,8 @@ def track_time_parallel(cfg, sig: SignalDef, samples_iq: np.ndarray,
                         channels: Sequence, n_epochs: int, n_blocks: int,
                         settle_epochs: Optional[int] = None,
                         handoff_iters: Optional[int] = None, *, device,
-                        fetch_in_kernel: bool = True) -> TrackResults:
+                        fetch_in_kernel: bool = True,
+                        epoch_loop: bool = False) -> TrackResults:
     """Track ``n_epochs`` split into ``n_blocks`` concurrent time blocks
     on ``device``.
 
@@ -164,7 +172,9 @@ def track_time_parallel(cfg, sig: SignalDef, samples_iq: np.ndarray,
     are flagged through ``settle_epochs`` / ``epochs_per_block`` on the
     result and ``nav_solve`` masks them.  ``fetch_in_kernel`` picks the
     flat bank over the whole record (True) or the per-block path over
-    per-block buffers with staged windows (False)."""
+    per-block buffers with staged windows (False).  ``epoch_loop`` runs the
+    eager epoch loop, the superblock kernels' plain version, in their place
+    on the card too (a yardstick for the kernels in the same process)."""
     device = torch.device(device)
     if sig.fdma:
         raise NotImplementedError(
@@ -200,7 +210,8 @@ def track_time_parallel(cfg, sig: SignalDef, samples_iq: np.ndarray,
 
         def one_pass(states):
             return _track_blocks_flat(samples_d, tables, ptables, states,
-                                      params, epochs_per_block, n_blocks)
+                                      params, epochs_per_block, n_blocks,
+                                      epoch_loop)
     else:
         # per-block sample buffers: one code period of front margin (the
         # handoff may move a block's start slightly before its predicted
@@ -220,7 +231,8 @@ def track_time_parallel(cfg, sig: SignalDef, samples_iq: np.ndarray,
 
         def one_pass(states):
             return _track_blocks(sb_d, starts_d, ends_d, tables, ptables,
-                                 states, params, epochs_per_block)
+                                 states, params, epochs_per_block,
+                                 epoch_loop)
 
     # every pass's outputs stay on the device; only the last pass's are
     # fetched (once, in _stitch)

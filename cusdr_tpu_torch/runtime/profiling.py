@@ -9,7 +9,8 @@ correlator's share of it and the device's idle share.  On a card
 ``engine.track_superblock`` is one launch of the superblock kernel, and
 the host loop ``engine.track`` around it stages the record, copies it to
 the card, launches and drains the outputs: ``profile_superblock`` measures
-those four steps and the launch's own profile.  PERF.md's "where the time
+those four steps and the launch's own profile, for either superblock kernel
+(windows fetched in the kernel, or staged into shared memory).  PERF.md's "where the time
 goes" tables are made by these functions (``chip_smoke.py`` calls them), so
 that successive readings are made the same way.
 
@@ -40,7 +41,9 @@ from ..tracking import engine
 
 # the correlator kernels' names in a trace (csrc/*.cu)
 _CORRELATOR_KERNELS = ("correlate_bank_kernel", "correlate_windows")
-_SUPERBLOCK_KERNEL = "track_superblock_kernel"
+# the superblock kernels' names in a trace, windows fetched / staged
+_SUPERBLOCK_KERNELS = {True: "track_superblock_kernel",
+                       False: "track_superblock_staged_kernel"}
 
 
 def make_bank(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
@@ -149,10 +152,12 @@ def _device_profile(run, kernel_names):
 
 
 def profile_superblock(cfg, device, n_epochs: int, n_blocks: int = 1,
-                       repeats: int = 3, seed: int = 0) -> dict:
+                       repeats: int = 3, seed: int = 0,
+                       fetch_in_kernel: bool = True) -> dict:
     """Profile one superblock of ``n_epochs`` epochs the way
     ``engine.track`` runs it, step by step on the bank ``make_bank``
-    builds, each step ended with the device's work done.
+    builds, each step ended with the device's work done; with
+    ``fetch_in_kernel`` False on the staged superblock kernel.
 
     Returns a dict: ``rows``, ``epochs``, ``buffer_bytes`` and, in host
     milliseconds (each of ``repeats`` runs after a warm-up), ``stage_ms``
@@ -171,6 +176,7 @@ def profile_superblock(cfg, device, n_epochs: int, n_blocks: int = 1,
     device = resolve_device(device)
     iq, tables, ptables, state, params = make_bank(cfg, device, n_blocks,
                                                    n_epochs, seed)
+    params = dataclasses.replace(params, fetch_in_kernel=fetch_in_kernel)
     record = iq.cpu().numpy()
     buf_len = len(record) // 2
     on_card = device.type == "cuda"
@@ -205,7 +211,8 @@ def profile_superblock(cfg, device, n_epochs: int, n_blocks: int = 1,
     for fn in steps.values():                       # warm-up (and build)
         fn()
     res = dict(signal=cfg.signal, rows=int(state.abs_sample.shape[0]),
-               epochs=n_epochs, buffer_bytes=2 * buf_len,
+               epochs=n_epochs, fetch_in_kernel=fetch_in_kernel,
+               buffer_bytes=2 * buf_len,
                **{name: [] for name in steps}, launches=None,
                device_ms=None, kernel_ms=None, idle_share=None)
     for _ in range(repeats):
@@ -223,7 +230,7 @@ def profile_superblock(cfg, device, n_epochs: int, n_blocks: int = 1,
     res.update(device_ms=device_ms,
                idle_share=1.0 - device_ms / min(res["track_ms"]))
     launches, traced_ms, kernel_ms = _device_profile(
-        run, (_SUPERBLOCK_KERNEL,))
+        run, (_SUPERBLOCK_KERNELS[fetch_in_kernel],))
     if traced_ms is not None:
         res.update(launches=launches, kernel_ms=kernel_ms)
     return res
@@ -238,6 +245,7 @@ def format_superblock_profile(p: dict) -> str:
         return "not measured" if x is None else format(x, spec)
 
     return (f"{p['signal']}, {p['rows']} rows x {p['epochs']} epochs, "
+            f"{'fetch' if p['fetch_in_kernel'] else 'staged'}, "
             f"{p['buffer_bytes'] / 1e6:.1f} MB buffer: stage "
             f"{span('stage_ms')} ms, copy to device {span('h2d_ms')} ms, "
             f"track_superblock {span('track_ms')} ms (device "
@@ -272,10 +280,13 @@ def main(argv=None) -> int:
                     help="epochs in the superblock")
     ap.add_argument("--blocks", type=int, default=1,
                     help="time blocks in the bank (rows = blocks x channels)")
+    ap.add_argument("--staged", action="store_true",
+                    help="windows staged into shared memory by the kernel")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     p = profile_superblock(get_config(args.signal), args.device, args.epochs,
-                           n_blocks=args.blocks)
+                           n_blocks=args.blocks,
+                           fetch_in_kernel=not args.staged)
     print(format_superblock_profile(p))
     return 0
 

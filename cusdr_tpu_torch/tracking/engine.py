@@ -2,13 +2,14 @@
 
 Counterpart of cusdr_tpu/tracking/engine.py (same names, fields and
 [n_epochs, C] output layout).  ``track_superblock`` tracks the whole bank
-through a superblock of epochs.  On a card, with the windows fetched in
-the kernel, that is ONE launch of the superblock kernel
-(ops/csrc/superblock.cu: window geometry, correlator sums and loop closure
-of every epoch, loop state in the row's thread block).  Its plain version
-is the eager loop ``track_superblock_epochs``, which the CPU and the
-staged-window path run: per epoch one correlator launch
-(ops/correlator.py) and a few [C]-wide f64 tensor ops for the
+through a superblock of epochs.  On a card that is ONE launch of a
+superblock kernel (window geometry, correlator sums and loop closure of
+every epoch, loop state in the row's thread block): ops/csrc/superblock.cu
+with the windows fetched in the kernel, ops/csrc/superblock_staged.cu with
+them staged (``fetch_in_kernel=False``: bulk copies into shared memory).
+Their plain version is the eager loop ``track_superblock_epochs``, which
+the CPU runs: per epoch one correlator launch (ops/correlator.py; staged
+windows are gathered before it) and a few [C]-wide f64 tensor ops for the
 discriminators and loop filters (``_close_epoch``); loop state stays
 float64 on the device.  The host loop ``track`` stages the record one
 superblock at a time and reads a superblock's outputs back one superblock
@@ -35,7 +36,8 @@ import torch
 
 from ..signals.defs import SignalDef
 from ..ops.correlator import (correlate_bank, correlate_windows,
-                              stage_windows, track_superblock_bank)
+                              stage_windows, track_superblock_bank,
+                              track_superblock_staged_bank)
 from .cno import cno_vsm, pll_lock_detector
 from .loop_filters import (calc_loop_coef, calc_loop_coef_carr3,
                            calc_loop_coef_exact)
@@ -338,10 +340,11 @@ def track_superblock(iq: torch.Tensor, sb_start: int, tables: torch.Tensor,
     table rows share the tables by row modulo.  Returns (new_state,
     TrackOutputs [n_epochs, C]).
 
-    A record on a card with ``params.fetch_in_kernel`` takes one launch of
-    the superblock kernel (a build or launch failure raises); a record on
-    the CPU, and staged windows, take ``track_superblock_epochs``."""
-    if iq.device.type != "cuda" or not params.fetch_in_kernel:
+    A record on a card takes one launch of a superblock kernel: the
+    windows fetched in the kernel with ``params.fetch_in_kernel``, else
+    staged into shared memory (a build or launch failure raises); a record
+    on the CPU takes ``track_superblock_epochs``."""
+    if iq.device.type != "cuda":
         return track_superblock_epochs(iq, sb_start, tables, pilot_tables,
                                        state, params, n_epochs, end_sample)
     end_sample = _check_superblock(iq, sb_start, pilot_tables, params,
@@ -350,10 +353,12 @@ def track_superblock(iq: torch.Tensor, sb_start: int, tables: torch.Tensor,
     if not isinstance(end_sample, torch.Tensor):
         end_sample = torch.full((n_ch,), end_sample, dtype=torch.int64,
                                 device=iq.device)
-    new, packed = track_superblock_bank(
+    bank = (track_superblock_bank if params.fetch_in_kernel
+            else track_superblock_staged_bank)
+    new, packed = bank(
         iq, sb_start, tables, pilot_tables if params.has_pilot else None,
         *pack_state(state), end_sample, n_epochs, params,
-        up_margin=UP_MARGIN)
+        up_margin=UP_MARGIN)[:2]
     return _finish_bank(unpack_state(*new), packed)
 
 
@@ -378,7 +383,8 @@ def track_superblock_epochs(iq: torch.Tensor, sb_start: int,
     """``track_superblock`` as an eager loop over the epochs (arguments and
     result as there), on any device: per epoch the geometry as [C] tensor
     ops, one correlator launch and ``_close_epoch``.  It is the plain
-    version the superblock kernel is held against."""
+    version the superblock kernels are held against (the staged one with
+    ``params.fetch_in_kernel`` False)."""
     end_sample = _check_superblock(iq, sb_start, pilot_tables, params,
                                    end_sample)
     n_ch = state.carr_freq.shape[0]

@@ -1,11 +1,12 @@
 """The CUDA kernels on a card: each epoch correlator against its plain
 PyTorch version, alone at the ported paths' shapes (no pilot, pilot, dual
 pilot; windows fetched in the kernel or staged; u·v, phase-ramp and table
-carriers); the superblock kernel (one launch per superblock) against its
-plain version, the eager epoch loop, at the gps_l1ca, gal_e5a and bds_b1c WB
-shapes; and ``track_superblock`` on the card against the CPU (gps_l1ca,
-gal_e5a with its pilot bank, the flat 96-row time-parallel bank, the staged
-path).
+carriers); the two superblock kernels (one launch per superblock, windows
+fetched or staged into shared memory) against their plain version, the
+eager epoch loop, at the gps_l1ca, gal_e5a and bds_b1c WB shapes (the staged
+one also at gps_l2c CL's); and ``track_superblock`` on the card against the
+CPU (gps_l1ca, gal_e5a with its pilot bank, the flat 96-row time-parallel
+bank, the per-block path).
 
 Every case needs a CUDA card and skips without one.  The file imports no
 jax, so it also runs where jax is absent:
@@ -399,8 +400,8 @@ def test_window_wrapper_rejects_what_the_kernel_cannot_take(cuda):
 def test_flat_96_row_bank_on_card_matches_cpu(cuda, fetch_in_kernel):
     """Eight time blocks of the 12-channel gps_l1ca preset as one 96-row
     bank for 10 epochs: one launch of the superblock kernel (flat path)
-    or one of the staged kernel per epoch (per-block path), block states
-    and outputs as on the CPU."""
+    or of the staged superblock kernel (per-block path), block states and
+    outputs as on the CPU."""
     cfg = get_config("gps_l1ca")
     sig = get_signal("gps_l1ca")
     params = engine.make_track_params(cfg, sig)
@@ -435,10 +436,8 @@ def test_flat_96_row_bank_on_card_matches_cpu(cuda, fetch_in_kernel):
 
     st_c, out_c = run(torch.device("cpu"))
     want = dict(LAUNCHES)
-    if fetch_in_kernel:
-        want["track_superblock"] += 1
-    else:
-        want["correlate_windows"] += epb
+    want["track_superblock" if fetch_in_kernel
+         else "track_superblock_staged"] += 1
     st_g, out_g = run(cuda)
     torch.cuda.synchronize()
     assert LAUNCHES == want
@@ -456,3 +455,190 @@ def test_flat_96_row_bank_on_card_matches_cpu(cuda, fetch_in_kernel):
     for name in ("abs_sample", "blksize"):
         assert np.array_equal(getattr(out_c, name).numpy(),
                               getattr(out_g, name).cpu().numpy()), name
+
+
+# phase 3e's tolerances for a cluster (chip_smoke.py, TRACK_RTOL and the
+# lines above it): f32 fields 2e-4·(max|eager| + 1); the f64 frequencies
+# and filter integrators 2e-3 Hz; the other f64 fields rtol 1e-6, atol 1e-4;
+# integer and boolean fields equal
+FREQ_FIELDS = ("carr_freq", "code_freq", "carr_nco", "code_nco", "d_carr",
+               "d2_carr")
+
+
+def _assert_within_phase_3e(got, want):
+    for g_all, w_all in zip(got, want):
+        for name, g, w in zip(g_all._fields, g_all, w_all):
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            if not g.is_floating_point():
+                assert torch.equal(g, w), name
+                continue
+            assert torch.isfinite(g).all(), name
+            d = (g.double() - w.double()).abs()
+            if g.dtype == torch.float32:
+                assert d.max() <= RTOL_TRACK * (w.abs().max() + 1.0), name
+            elif name in FREQ_FIELDS:
+                assert d.max() <= 2e-3, name
+            else:
+                assert (d <= 1e-4 + 1e-6 * w.abs()).all(), name
+
+
+def _staged(params):
+    return dataclasses.replace(params, fetch_in_kernel=False)
+
+
+L2C_CL = dict(sampling_freq=2.048e6, if_freq=7000.0, pilot_trk_flag=1,
+              num_channels=5)
+
+
+@pytest.mark.parametrize("interp_taps", [True, False])
+@pytest.mark.parametrize("signal,over,n_blocks,n_epochs", [
+    ("gps_l1ca", {}, 1, 40),                      # 12 x 18 008, k = 9
+    ("gps_l1ca", dict(pll_order=3), 1, 40),
+    ("gps_l1ca", {}, 8, 20),                      # the 96-row per-block bank
+    ("gal_e5a", {}, 1, 40),                       # pilot, 12 x 18 008
+    ("bds_b1c", dict(pilot_trk_flag=2), 1, 12),   # dual pilot, 15 x 180 008
+    ("gps_l2c", L2C_CL, 1, 12),                   # long pilot, 5 x 40 968
+])
+def test_staged_superblock_kernel_matches_eager_loop(cuda, signal, over,
+                                                     n_blocks, n_epochs,
+                                                     interp_taps):
+    """One launch of the staged superblock kernel against the eager loop on
+    staged windows on the same card: bit for bit with one block per row,
+    the integer fields equal and the first epoch's sums within the kernels'
+    tolerance with a cluster.  Of the last four rows one comes in inactive,
+    two end part way through, and one runs its code NCO 5 % slow, so that
+    from its second epoch on its windows miss the prefetch and take the
+    slow path (read from device memory), still bit for bit."""
+    cfg = get_config(signal, **over)
+    iq, tables, ptables, state, params = make_bank(cfg, cuda, n_blocks,
+                                                   n_epochs)
+    params = dataclasses.replace(_staged(params), interp_taps=interp_taps)
+    n_rows = state.abs_sample.shape[0]
+    active = state.active.clone()
+    active[-3] = False
+    code_freq = state.code_freq.clone()
+    code_freq[-4] *= 0.95
+    state = state._replace(active=active, code_freq=code_freq)
+    end = torch.full((n_rows,), iq.shape[0] // 2, device=cuda)
+    end[-2] = state.abs_sample[-2] + (n_epochs // 2) * cfg.samples_per_code
+    end[-1] = state.abs_sample[-1] + 5
+    args = (iq, 0, tables, ptables, state, params, n_epochs, end)
+    n_pilots = 0 if ptables is None else ptables.dim() - 1
+    name = corr.STAGED_SUPERBLOCK_VARIANTS[n_pilots]
+    before = dict(LAUNCHES)
+    want = engine.track_superblock_epochs(*args)
+    before[corr.WINDOW_VARIANTS[n_pilots]] += n_epochs
+    assert LAUNCHES == before
+    valid = want[1].blksize > 0
+    assert valid[:, :-3].all() and not valid[:, -1].any()
+    assert valid[0, -2] and not valid[-1, -2] and not valid[:, -3].any()
+    got = engine.track_superblock(*args)
+    torch.cuda.synchronize()
+    before[name] += 1
+    assert LAUNCHES == before
+    cluster = corr.cluster_size(n_rows)
+    _assert_tracks_close(got, want, exact=cluster == 1)
+    new, packed, slow = corr.track_superblock_staged_bank(
+        iq, 0, tables, ptables, *engine.pack_state(state), end, n_epochs,
+        params, up_margin=engine.UP_MARGIN, cluster=1)
+    torch.cuda.synchronize()
+    one = engine._finish_bank(engine.unpack_state(*new), packed)
+    _assert_tracks_close(one, want, exact=True)
+    slow = slow.cpu()
+    assert slow[-4] == n_epochs - 1 and not slow[:-4].any(), slow
+
+
+def _locked_bank(signal, over, n_ch, n_epochs, cn0_dbhz, dev):
+    """``n_ch`` SVs of ``signal`` synthesized at ``cn0_dbhz``, and the bank
+    tracking them from their true code phases and carriers."""
+    from cusdr_tpu_torch.io.synth import (SynthSV, quantize_iq_int8,
+                                          synthesize_if)
+    cfg, sig = get_config(signal, **over), get_signal(signal)
+    spc = cfg.samples_per_code
+    rng = np.random.default_rng(3)
+    svs = [SynthSV(prn=prn, code_phase=float(rng.integers(0, spc - 1)),
+                   doppler_hz=float(d), cn0_dbhz=cn0_dbhz)
+           for prn, d in zip(cfg.acq_satellite_list,
+                             np.linspace(-4000.0, 4000.0, n_ch))]
+    iq = quantize_iq_int8(synthesize_if(
+        cfg, sig, svs, num_ms=int((n_epochs + 4) * sig.code_period_ms),
+        seed=3))
+    channels = [(sv.prn, cfg.if_freq + sv.doppler_hz, int(sv.code_phase))
+                for sv in svs]
+    params = _staged(engine.make_track_params(cfg, sig))
+    dops = [sv.doppler_hz for sv in svs]
+    tabs, ptabs = (None if t is None else torch.from_numpy(t).to(dev)
+                   for t in engine.build_replica_tables(cfg, sig, params,
+                                                        channels, dops))
+    state = engine.init_channel_state(channels, sig.chip_rate_hz, dev,
+                                      dopplers=dops,
+                                      carrier_freq_hz=sig.carrier_freq_hz)
+    return torch.from_numpy(iq).to(dev), tabs, ptabs, state, params
+
+
+@pytest.mark.parametrize("signal,over,n_ch,n_epochs,cn0", [
+    ("gps_l1ca", {}, 12, 40, 45.0),
+    ("gal_e5a", {}, 12, 40, 50.0),
+])
+def test_staged_superblock_cluster_holds_phase_3e_tolerances(
+        cuda, signal, over, n_ch, n_epochs, cn0):
+    """On locked channels the staged kernel with a cluster per row stays
+    within phase 3e's tolerances of the eager loop over the whole
+    superblock, and reads every epoch from its prefetched stages."""
+    iq, tables, ptables, state, params = _locked_bank(signal, over, n_ch,
+                                                      n_epochs, cn0, cuda)
+    end = torch.full((n_ch,), iq.shape[0] // 2, device=cuda)
+    args = (iq, 0, tables, ptables, state, params, n_epochs, end)
+    want = engine.track_superblock_epochs(*args)
+    new, packed, slow = corr.track_superblock_staged_bank(
+        iq, 0, tables, ptables, *engine.pack_state(state), end, n_epochs,
+        params, up_margin=engine.UP_MARGIN)
+    torch.cuda.synchronize()
+    assert corr.cluster_size(n_ch) > 1
+    _assert_within_phase_3e(
+        engine._finish_bank(engine.unpack_state(*new), packed), want)
+    assert not slow.any()
+
+
+def test_staged_superblock_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    cfg = get_config("gps_l1ca")
+    iq, tables, _, state, params = make_bank(cfg, cuda, 1, 4)
+    params = _staged(params)
+    end = torch.full((12,), iq.shape[0] // 2, device=cuda)
+    packed = engine.pack_state(state)
+    kw = dict(up_margin=engine.UP_MARGIN)
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        corr.track_superblock_staged_bank(iq[2:], 0, tables, None, *packed,
+                                          end, 4, params, **kw)
+    with pytest.raises(ValueError, match="end_sample"):
+        corr.track_superblock_staged_bank(iq, 0, tables, None, *packed,
+                                          end.int(), 4, params, **kw)
+    with pytest.raises(ValueError, match="n_epochs"):
+        corr.track_superblock_staged_bank(iq, 0, tables, None, *packed, end,
+                                          0, params, **kw)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        corr.track_superblock_staged_bank(iq, 0, tables, None, *packed, end,
+                                          4, params, cluster=3, **kw)
+    assert LAUNCHES == before
+
+
+def test_per_block_path_is_one_staged_launch_per_pass(cuda):
+    """``track_time_parallel`` on the per-block path: one staged
+    superblock-kernel launch per pass, no per-epoch kernel."""
+    cfg = get_config("gps_l1ca")
+    sig = get_signal("gps_l1ca")
+    n_blocks, epb, n_ch = 8, 10, 12
+    spc = cfg.samples_per_code
+    samples = np.random.default_rng(5).integers(
+        -16, 16, 2 * (n_blocks * epb + 5) * spc).astype(np.int8)
+    channels = [(1 + c, cfg.if_freq + 300.0 * (c - 6), 101 + 1337 * c)
+                for c in range(n_ch)]
+    before = dict(LAUNCHES)
+    res = timeblocks.track_time_parallel(
+        cfg, sig, samples, channels, n_blocks * epb, n_blocks,
+        handoff_iters=1, device=cuda, fetch_in_kernel=False)
+    before["track_superblock_staged"] += 2
+    assert LAUNCHES == before
+    assert res.i_p.shape == (n_ch, n_blocks * epb)
+    assert np.isfinite(res.i_p).all() and (res.blksize > 0).all()

@@ -183,7 +183,8 @@ def test_superblock_kernel_is_registered_and_takes_cuda_tensors_only():
                  "track_superblock_dual_pilot"):
         assert name in tcorr.LAUNCHES
     assert tcorr.SUPERBLOCK_VARIANTS == tuple(
-        n for n in tcorr.LAUNCHES if n.startswith("track_superblock"))
+        n for n in tcorr.LAUNCHES if n.startswith("track_superblock")
+        and n not in tcorr.STAGED_SUPERBLOCK_VARIANTS)
     assert [tcorr.cluster_size(c) for c in (6, 12, 15, 16, 17, 33, 48, 66,
                                             67, 96)] == [
         8, 8, 8, 8, 4, 4, 2, 2, 1, 1]
@@ -269,4 +270,4 @@ def test_profiling_tool_prints_one_line(capsys):
                            "--epochs", "2"]) == 0
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1
-    assert out[0].startswith("gal_e5a, 12 rows x 2 epochs")
+    assert out[0].startswith("gal_e5a, 12 rows x 2 epochs, fetch")
