@@ -22,7 +22,9 @@ Phases, each of which fails the run when it fails:
    carrier (no pilot at gps_l1ca 12 and 96 x 18 008 k = 9, pilot at gal_e1c
    12 x 72 008 k = 5, dual pilot at bds_b1c WB 15 x 180 008, both tap
    modes), the phase-ramp and the table carrier (12 and 96 x 18 008), and
-   the 500-epoch loops of cusdr_tpu_torch/tools/perf_correlator.py;
+   the 500-epoch loops of cusdr_tpu_torch/tools/perf_correlator.py; the
+   int16 instantiations of the fetch and the staged-window kernel on an
+   int16 record (12 x 18 008);
 3d. the per-epoch profile of the eager loop ``track_superblock_epochs``
    (launches, wall, device and correlator time, idle share) and the
    per-superblock profile of ``track_superblock`` on the superblock kernel
@@ -37,9 +39,11 @@ Phases, each of which fails the run when it fails:
    below from the SVs' true code phases and carriers: gps_l1ca 12 rows x
    250 epochs, the 96 rows of eight time blocks with per-row record ends
    (half the blocks freeze part way), gal_e5a 12 rows x 250 (pilot),
-   bds_b1c WB 15 rows x 100 (dual pilot) and the gps_l2c CL long pilot (3
-   rows x 250 at 2.048 Msps, periods rolling over), each in both tap
-   modes, with one block per row (every field equal to the eager loop's,
+   bds_b1c WB 15 rows x 100 (dual pilot), the gps_l2c CL long pilot (3
+   rows x 250 at 2.048 Msps, periods rolling over), glo_l1 at its preset's
+   12 Msps and IF 0 (12 rows on FDMA channels -7..4, carriers to +-3.94
+   MHz) and the int16 instantiation on the gps_l1ca case's record as int16
+   times 64 (12 x 250), each in both tap modes, with one block per row (every field equal to the eager loop's,
    bit for bit) and with a thread-block cluster per row (within the
    tolerances stated at TRACK_RTOL below); per case the count of differing
    elements and the largest difference per field, both times and the
@@ -80,9 +84,25 @@ Phases, each of which fails the run when it fails:
    dual-pilot staged variants likewise on the records of phases 6 and 7
    (two blocks each);
 10. time-parallel PVT: phase 5's scene with ``time_blocks=8``; fixes
-   within phase 5's bounds.
+   within phase 5's bounds;
+11. gps_l2c at the preset (8 Msps, 12 channels, the 32-PRN circular-shift
+   search over +-10 kHz at 12.5 Hz, the CL period search; the fine stage at
+   the reference tests' 5 Hz step, see ``L2C_PRESET_OVER``): ``Receiver.run``
+   on 3.1 s of 12 SVs at 46 dB-Hz, each at a known CL period: every SV
+   acquired within 2 samples with its CL period, every channel locked, one
+   superblock-kernel launch per superblock; the acquisition's seconds split
+   into coarse, CL search and fine;
+12. GLONASS: ``Receiver.run`` at the glo_l1 preset (12 Msps, IF 0, the
+   14-channel FDMA search) on 3 s of 12 SVs at 45 dB-Hz: every SV acquired,
+   every channel locked; then glo_l2 with ``time_blocks=8`` through the
+   flat bank and the per-block path, locked over every block's tail;
+13. int16: phase 4's record times 64 as int16 through ``track`` (the
+   superblock kernel's int16 instantiation) and through the per-block path
+   (the staged one's): equal to the int8 runs, the sums exactly 64 times;
+   the eager loops of both on the int16 record (the int16 per-epoch
+   kernels).
 
-The scenes of phases 3e-10 are made in six worker processes while the
+The scenes of phases 3e-13 are made in nine worker processes while the
 kernel checks of phases 1-3c run, and are all finished before the
 host-bound measurements (the 500-epoch loops, phase 3d) and phase 4
 start.
@@ -141,6 +161,9 @@ for _base in ("correlate_bank", "correlate_windows", "track_superblock",
               "track_superblock_staged"):
     for _suffix in ("_pilot", "_dual_pilot"):
         KERNELS[_base + _suffix] = KERNELS[_base]
+    # the int16 instantiation of the same source, launched on the int16
+    # paths of phases 3e, 3f and 13
+    KERNELS[_base + "[int16]"] = KERNELS[_base]
 # phase 3e: the superblock kernel against the eager loop through a
 # superblock.  With one block per row every operation is the eager loop's,
 # rounded the same way: every field must be equal, bit for bit.  With a
@@ -180,7 +203,10 @@ SHAPES = (
     ("correlate_windows_ramp", "gps_l1ca time_blocks=8", 96, 18008, 9),
     ("correlate_windows_table", "gps_l1ca time_blocks=8", 96, 18008, 9),
     ("correlate_windows_table", "gps_l1ca", 12, 18008, 9),
+    ("correlate_bank[int16]", "gps_l1ca int16", 12, 18008, 9),
+    ("correlate_windows[int16]", "gps_l1ca int16", 12, 18008, 9),
 )
+INT16_SCALE = 64       # an int16 record made from an int8 one, times 64
 
 
 def log(msg: str) -> None:
@@ -290,7 +316,7 @@ def bound(name, n_ch, blk, k, n_valid, interp):
     operations over the card's f32 peak.
 
     Bytes, each input read once and the output written once: 2 per sample
-    of every row's sample window, 1 per replica window element (blk + 2k +
+    (4 for an int16 record) of every row's sample window, 1 per replica window element (blk + 2k +
     1 per row and bank), the per-row scalars (8 per int64, 4 per f32), 8
     per sample of the table carrier's f32 basis tables, and 32 or 64 per
     output row.  Operations, per valid sample of this call's inputs
@@ -308,7 +334,7 @@ def bound(name, n_ch, blk, k, n_valid, interp):
     # palpha); staged: bsz + four f32 (+ palpha); table: bsz + three f32
     scalars = ((8 + 16 + (4 if n_pilots else 0)) if staged
                else (32 + 16 + (12 if n_pilots else 0)))
-    n_bytes = n_ch * (2 * blk + banks * win + scalars
+    n_bytes = n_ch * (_sample_bytes(name) * blk + banks * win + scalars
                       + (64 if n_pilots else 32))
     ops = n_valid * (12 + banks * (12 + (9 if interp else 0)))
     if name.endswith("_table"):
@@ -319,6 +345,11 @@ def bound(name, n_ch, blk, k, n_valid, interp):
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", n_bytes, ops)
+
+
+def _sample_bytes(name):
+    """Bytes of one I/Q sample of the record kernel ``name`` reads."""
+    return 4 if name.endswith("[int16]") else 2
 
 
 def _kernel_calls(name, args, kw, inc):
@@ -372,6 +403,9 @@ def kernel_check(name, label, n_ch, blk, k, seed=0):
     n_pilots = 2 if "dual" in name else 1 if "pilot" in name else 0
     rng = np.random.default_rng(seed)
     args, kw, inc = _bank_inputs(rng, n_ch, blk, k, n_pilots)
+    if name.endswith("[int16]"):
+        # the int16 instantiation on the same record times 64
+        args = (args[0].to(torch.int16) * INT16_SCALE,) + args[1:]
     call, call_plain = _kernel_calls(name, args, kw, inc)
     n_valid = int(args[9].clamp(0, blk).sum().item())
     n_out = 16 if n_pilots else 8
@@ -456,7 +490,9 @@ def scene(cfg, sig, prns, seconds, cn0_dbhz=45.0, seed=1, dopplers=None):
         dopplers = np.linspace(-4400.0, 4600.0, len(prns))
     svs = [SynthSV(prn=p, code_phase=float(rng.uniform(0, spc - 1)),
                    doppler_hz=float(d), cn0_dbhz=cn0_dbhz,
-                   nav_bits=rng.choice([-1.0, 1.0], n_bits))
+                   nav_bits=rng.choice([-1.0, 1.0], n_bits),
+                   # an FDMA signal's PRN is its frequency channel
+                   fdma_channel=p if sig.fdma else 0)
            for p, d in zip(prns, dopplers)]
     iq = quantize_iq_int8(synthesize_if(cfg, sig, svs,
                                         num_ms=int(seconds * 1000),
@@ -520,13 +556,14 @@ def _union_length(starts, lengths):
 
 
 def superblock_bound(n_pilots, interp, blk, n_rows, n_epochs, table_bytes,
-                     abs_sample, blksize):
+                     abs_sample, blksize, sample_bytes=2):
     """The least time the card could take for one superblock launch on this
     run's data (``abs_sample``, ``blksize``: the [E, C] outputs, the window
     starts in the record and their lengths, 0 where a row was frozen).
 
-    Bytes, each input read once and each output written once: 2 per record
-    sample that any valid window covers (the rows of a bank read nearly the
+    Bytes, each input read once and each output written once:
+    ``sample_bytes`` (2 for int8 I/Q, 4 for int16) per record sample that
+    any valid window covers (the rows of a bank read nearly the
     same stretch of one record, which is one input), the replica tables
     once (``table_bytes``: they are read again every epoch, but are one
     input), the state in and out (12 f64, an int64, an int32 and a flag per
@@ -539,7 +576,8 @@ def superblock_bound(n_pilots, interp, blk, n_rows, n_epochs, table_bytes,
     n_valid = int(blksize.sum())
     n_valid_epochs = int(valid.sum())
     banks = 1 + n_pilots
-    n_bytes = (2 * _union_length(abs_sample[valid], blksize[valid])
+    n_bytes = (sample_bytes * _union_length(abs_sample[valid],
+                                            blksize[valid])
                + table_bytes + n_rows * (2 * 109 + 8)
                + n_epochs * n_rows * 96)
     ops = (n_valid * (12 + banks * (12 + (9 if interp else 0)))
@@ -601,7 +639,9 @@ def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
     ``staged`` also the slow-path epochs and, timed in turns with it on the
     same bank, the fetch superblock kernel.  With ``n_blocks`` > 1 the bank
     holds that many time blocks of the channels and every odd block's rows
-    end part way through the superblock."""
+    end part way through the superblock.  A cluster's largest
+    carrier-frequency difference is logged with its row, epoch and the
+    eager loop's prompt pair there."""
     import dataclasses
     import numpy as np
     import torch
@@ -612,7 +652,8 @@ def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
     spc = cfg.samples_per_code
     n_samp = min(len(iq) // 2, (n_blocks * n_epochs + 5) * spc)
     rec = torch.from_numpy(np.ascontiguousarray(iq[:2 * n_samp])).to(dev)
-    dops = np.asarray([ch[1] for ch in channels]) - cfg.if_freq
+    # the code-rate aiding leaves an FDMA channel's carrier offset out
+    dops = engine.code_dopplers(cfg, sig, channels)
     n_ch = len(channels)
     end = None
     if n_blocks > 1:
@@ -631,7 +672,7 @@ def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
     n_rows = state.abs_sample.shape[0]
     variants = (corr.STAGED_SUPERBLOCK_VARIANTS if staged
                 else corr.SUPERBLOCK_VARIANTS)
-    n_pilots = variants.index(name)
+    n_pilots = variants.index(name.removesuffix("[int16]"))
     rows = {}
     for interp in (True, False):
         params = dataclasses.replace(engine.make_track_params(cfg, sig),
@@ -691,6 +732,14 @@ def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
             log(f"{tag}, {size} block(s) per row: {n_diff} elements differ "
                 f"from the eager loop's; largest |difference| per field: "
                 f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} }")
+            if n_diff:
+                d = (got[1].carr_freq - want[1].carr_freq).abs()
+                e, r = divmod(int(d.argmax().item()), n_rows)
+                log(f"{tag}, {size} block(s) per row: largest carrier "
+                    f"difference {d.max().item():.3g} Hz at epoch {e}, row "
+                    f"{r}, where the eager loop's I_P, Q_P are "
+                    f"{want[1].i_p[e, r].item():.1f}, "
+                    f"{want[1].q_p[e, r].item():.1f}")
             if size == 1 and n_diff:
                 raise AssertionError(f"{tag}, one block per row: not the "
                                      f"eager loop's bits: {worst}")
@@ -705,6 +754,9 @@ def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
                 f1, s1, s2, f2 = (_timed(f, 5)
                                   for f in (fetch_fn, fn, fn, fetch_fn))
                 n_slow = int(slow[size].sum().item())
+                if n_slow:
+                    log(f"{tag}, {size} block(s) per row: slow-path epochs "
+                        f"per row {slow[size].tolist()}")
                 log(f"{tag}, {size} block(s) per row: slow-path epochs "
                     f"{n_slow} (summed over rows and blocks); time on the "
                     f"card per superblock (CUDA events over back-to-back "
@@ -730,7 +782,8 @@ def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
         e1, k1, k2, e2 = (_timed(f, 2) for f in (eager, kern, kern, eager))
         b_ms, b_by, n_bytes, ops = superblock_bound(
             n_pilots, interp, params.blk, n_rows, n_epochs, table_bytes,
-            want[1].abs_sample.cpu().numpy(), blksize)
+            want[1].abs_sample.cpu().numpy(), blksize,
+            sample_bytes=2 * rec.element_size())
         row.update(tol=TRACK_RTOL * (scale + 1.0), wrapper_ms=(k1 + k2) / 2,
                    plain_wrapper_ms=(e1 + e2) / 2,
                    plain_device_ms=_device_ms(eager, n=1), bound_ms=b_ms,
@@ -759,12 +812,16 @@ def superblock_checks(scenes, staged=False):
     from cusdr_tpu_torch.signals.defs import get_signal
 
     def truth(cfg, svs):
-        return [(sv.prn, cfg.if_freq + sv.doppler_hz,
-                 int(round(sv.code_phase))) for sv in svs]
+        return [(sv.prn, _true_carrier(cfg, sv), int(round(sv.code_phase)))
+                for sv in svs]
 
     l1, e5a = get_config("gps_l1ca"), get_config("gal_e5a")
     b1c = get_config("bds_b1c", **B1C_WB)
     l2c = get_config("gps_l2c", **L2C_OVER)
+    glo = get_config("glo_l1")
+    # the first 255 code periods of the main record as int16, times 64
+    svs, iq8, _ = scenes["main"]
+    iq16 = iq8[:2 * 255 * l1.samples_per_code].astype("int16") * INT16_SCALE
     # (pilot banks, path, config, scene, channels, epochs, time blocks)
     cases = (
         (0, "gps_l1ca", l1, scenes["main"], None, 250, 1),
@@ -773,14 +830,19 @@ def superblock_checks(scenes, staged=False):
         (1, "gal_e5a", e5a, scenes["e5a"], None, 250, 1),
         (1, "gps_l2c CL long pilot", l2c, scenes["l2c"], L2C_CHANNELS,
          L2C_EPOCHS, 1),
-        (2, "bds_b1c WB", b1c, scenes["b1c"], None, 100, 1))
+        (2, "bds_b1c WB", b1c, scenes["b1c"], None, 100, 1),
+        (0, "glo_l1 FDMA, k = -7..4, IF 0", glo, scenes["glo_l1"], None,
+         250, 1),
+        (0, "gps_l1ca int16 (the int8 record x 64)", l1, (svs, iq16, 0.0),
+         None, 250, 1))
     variants = (corr.STAGED_SUPERBLOCK_VARIANTS if staged
                 else corr.SUPERBLOCK_VARIANTS)
     checks = {}
     for n_pilots, label, cfg, made, channels, n_epochs, n_blocks in cases:
         if channels is None:
             channels = truth(cfg, made[0])
-        name = variants[n_pilots]
+        name = variants[n_pilots] + ("[int16]" if made[1].itemsize == 2
+                                     else "")
         checks.setdefault(name, []).append(superblock_check(
             name, label, cfg, get_signal(cfg.signal), made[1], channels,
             n_epochs, n_blocks, staged))
@@ -809,7 +871,7 @@ def check_main(cfg, svs, res, launches=None, tail_epochs=500,
     for sv in svs:
         _, carr, cp, _ = got[sv.prn]
         dcp = (cp - sv.code_phase + spc / 2) % spc - spc / 2
-        dfr = carr - (cfg.if_freq + sv.doppler_hz)
+        dfr = carr - _true_carrier(cfg, sv)
         acq_err.append(dfr)
         if (abs(dcp) > max(0.5 * cfg.sampling_freq / cfg.code_freq_basis,
                            1.0)
@@ -829,7 +891,7 @@ def check_main(cfg, svs, res, launches=None, tail_epochs=500,
     tail = slice(n_ep - tail_epochs, n_ep)
     snr = [np.abs(getattr(trk, i)[:, tail]).mean(axis=1)
            / getattr(trk, q)[:, tail].std(axis=1) for i, q in pairs]
-    truth = {sv.prn: cfg.if_freq + sv.doppler_hz for sv in svs}
+    truth = {sv.prn: _true_carrier(cfg, sv) for sv in svs}
     fr_err = np.asarray([trk.carr_freq[c, tail].mean() - truth[p]
                          for c, p in enumerate(trk.prns)])
     if not (all(s == "T" for s in trk.status)
@@ -842,6 +904,15 @@ def check_main(cfg, svs, res, launches=None, tail_epochs=500,
                              f"tracked epochs in superblocks of "
                              f"{cfg.superblock_ms} ms")
     return n_ep, snr, fr_err, np.asarray(acq_err)
+
+
+def _true_carrier(cfg, sv):
+    """The carrier an SV of the scene was put at: the IF, its Doppler and,
+    for an FDMA signal, its frequency channel's offset."""
+    from cusdr_tpu_torch.signals.defs import get_signal
+    sig = get_signal(cfg.signal)
+    offset = sig.fdma_spacing_hz * sv.fdma_channel if sig.fdma else 0.0
+    return cfg.if_freq + offset + sv.doppler_hz
 
 
 def _superblocks(cfg, n_epochs):
@@ -873,7 +944,7 @@ def eager_track(card, tag, cfg, made, res, variant, n_epochs):
     reset_launches()
     t0 = time.perf_counter()
     params = engine.make_track_params(cfg, sig)
-    dops = np.asarray([ch[1] for ch in channels], np.float64) - cfg.if_freq
+    dops = engine.code_dopplers(cfg, sig, channels)
     ctabs, ptabs = engine.build_replica_tables(cfg, sig, params, channels,
                                                dops)
     tables = torch.from_numpy(ctabs).to(dev)
@@ -1436,6 +1507,253 @@ def pvt_pilot(card: str, made):
     _check_fixes("pvt-l5", card, scn, res, "test_e2e_l5c", 5, 20.0, 60.0)
 
 
+# phase 11: gps_l2c at the preset (8 Msps, 12 channels, the 32-PRN
+# circular-shift search over +-10 kHz at 12.5 Hz with the CL period search)
+# on 12 SVs at 46 dB-Hz, each at a known code phase and CL period.  The
+# fine stage runs at the 5 Hz step tests/test_e2e_l2c.py and
+# tests/test_multisignal.py give the preset: at its own 25 Hz step, twice
+# the coarse step, the fine stage has one bin, 6.25 Hz above the coarse
+# pick, and the 10 Hz, 20 ms PLL settles 12.5 Hz off on channels left ~9-11
+# Hz off, in the reference as in the port (tests/test_torch_l2c.py,
+# ``test_shipped_fine_step_pulls_in_as_the_reference``)
+L2C_PRESET_OVER = dict(fine_search_step=5.0)
+L2C_PRESET_PRNS = [1, 3, 6, 8, 11, 13, 17, 19, 22, 24, 28, 31]
+L2C_PRESET_MS = 3100
+L2C_PRESET_DOPPLERS = (-4400.0, 4600.0)      # spread over the SVs
+
+
+def l2c_preset_scene_job():
+    """Phase 11's scene, made in a worker process of the scene pool.
+    Returns (SVs at the code phase where their CL period starts, int8 I/Q,
+    seconds it took, {prn: that CL period})."""
+    import numpy as np
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.io.synth import (SynthSV, quantize_iq_int8,
+                                          synthesize_if)
+    from cusdr_tpu_torch.signals.defs import get_signal
+    t0 = time.perf_counter()
+    cfg, sig = get_config("gps_l2c"), get_signal("gps_l2c")
+    rng = np.random.default_rng(21)
+    spc = cfg.samples_per_code
+    n_bits = int(L2C_PRESET_MS / sig.nav_symbol_ms) + 2
+    synth, truth, periods = [], [], {}
+    for prn, dop in zip(L2C_PRESET_PRNS,
+                        np.linspace(*L2C_PRESET_DOPPLERS,
+                                    len(L2C_PRESET_PRNS))):
+        phase = float(rng.uniform(0, spc - 1))
+        period = int(rng.integers(0, sig.pilot_phase_hypotheses))
+        code_freq = sig.chip_rate_hz * (1.0 + dop / sig.carrier_freq_hz)
+        per_samples = sig.code_length_chips * cfg.sampling_freq / code_freq
+        synth.append(SynthSV(prn=prn, code_phase=phase - period * per_samples,
+                             doppler_hz=float(dop), cn0_dbhz=46.0,
+                             nav_bits=rng.choice([-1.0, 1.0], n_bits)))
+        truth.append(SynthSV(prn=prn, code_phase=phase,
+                             doppler_hz=float(dop), cn0_dbhz=46.0))
+        periods[prn] = period
+    # one chunk: the CL code generator caches four PRNs' codes, and the
+    # synthesizer asks for every SV's code again in every chunk
+    iq = quantize_iq_int8(synthesize_if(cfg, sig, synth,
+                                        num_ms=L2C_PRESET_MS, seed=21,
+                                        chunk_ms=L2C_PRESET_MS))
+    return truth, iq, time.perf_counter() - t0, periods
+
+
+def l2c_path(card: str, made):
+    """Phase 11: ``Receiver.run`` at the gps_l2c preset (the fine step of
+    ``L2C_PRESET_OVER``): every SV acquired
+    within 2 samples of its code phase and with its CL period, every
+    channel locked over the last second, one superblock-kernel launch per
+    superblock; the acquisition's seconds split into the coarse search,
+    the CL period search and the fine stage.  Returns the launches."""
+    from cusdr_tpu_torch import get_config
+    cfg = get_config("gps_l2c", **L2C_PRESET_OVER)
+    svs, iq, made_s, periods = made
+    launches, res = run_path(card, "l2c", cfg, (svs, iq, made_s),
+                             "track_superblock", pilot=False, tail_epochs=50)
+    spc = cfg.samples_per_code
+    by_prn = {sv.prn: sv for sv in svs}
+    for prn, _, cp, pilot_phase in res.channels:
+        sv = by_prn[prn]
+        # the peak may lie a period on, where the next CL period starts
+        n = round((cp - sv.code_phase) / spc)
+        want = (periods[prn] + n) % 75
+        if abs(cp - sv.code_phase - n * spc) > 2 or pilot_phase != want:
+            raise AssertionError(f"[l2c] PRN {prn}: code phase {cp} against "
+                                 f"{sv.code_phase:.1f} + {n} periods, CL "
+                                 f"period {pilot_phase} against {want}")
+    tm = res.acq.timings
+    log(f"[l2c] acquisition on {card}: coarse (circular-shift search) "
+        f"{tm['coarse_s']:.3f} s, CL period search {tm['pilot_phase_s']:.3f}"
+        f" s, fine {tm['fine_s']:.3f} s; every CL period as the scene's")
+    return launches
+
+
+GLO_L1_SCENE = ("glo_l1", {}, list(range(-7, 5)), 3.0, 45.0)
+GLO_L2_SCENE = ("glo_l2", {}, list(range(-7, 5)), 3.0, 45.0)
+
+
+def glonass_path(card: str, made_l1, made_l2):
+    """Phase 12: ``Receiver.run`` at the glo_l1 preset (12 Msps, IF 0, the
+    14-channel FDMA search): every SV acquired, every channel locked, one
+    superblock-kernel launch per superblock; then glo_l2 with
+    ``time_blocks=8`` through the flat bank (one launch per pass) and the
+    per-block path (one staged launch per pass), every channel locked over
+    every block's tail.  Returns the launches of (glo_l1, the flat bank,
+    the per-block path)."""
+    import torch
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.ops.correlator import LAUNCHES, reset_launches
+    from cusdr_tpu_torch.parallel.timeblocks import track_time_parallel
+    from cusdr_tpu_torch.receiver import Receiver
+    from cusdr_tpu_torch.signals.defs import get_signal
+    n_l1, _ = run_path(card, "glo-l1", get_config("glo_l1"), made_l1,
+                       "track_superblock", pilot=False, tail_epochs=500)
+    cfg = get_config("glo_l2", time_blocks=TIME_BLOCKS)
+    sig = get_signal("glo_l2")
+    svs, iq, _ = made_l2
+    passes = cfg.handoff_iters + 1
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = Receiver(cfg, "cuda").run(iq)
+    sec = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    _only("glo-l2-tp", launches, "track_superblock", passes)
+    check_main(cfg, svs, res, None, tail_epochs=100)
+    trk = res.track
+    worst = _block_tails_locked("glo-l2-tp", trk, 100)
+    n_ep = trk.i_p.shape[1]
+    log(f"[glo-l2-tp] flat bank on {card}: {TIME_BLOCKS} blocks x "
+        f"{len(res.channels)} channels x {trk.epochs_per_block} epochs x "
+        f"{passes} passes, acquisition {res.timings['acquisition_s']:.3f} s,"
+        f" tracking {res.timings['tracking_s']:.3f} s = "
+        f"{n_ep * 1e-3 / res.timings['tracking_s']:.3f}x real time, "
+        f"{launches['track_superblock']} track_superblock launches; lowest "
+        f"block-tail mean|I_P|/std(Q_P) {worst:.1f} (Receiver.run {sec:.3f}"
+        f" s)")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    trk_b = track_time_parallel(cfg, sig, iq, res.channels, n_ep,
+                                TIME_BLOCKS, device="cuda",
+                                fetch_in_kernel=False)
+    sec = time.perf_counter() - t0
+    launches_b = dict(LAUNCHES)
+    _only("glo-l2-blocks", launches_b, "track_superblock_staged", passes)
+    worst = _block_tails_locked("glo-l2-blocks", trk_b, 100)
+    log(f"[glo-l2-blocks] per-block path on {card}: {TIME_BLOCKS} blocks x "
+        f"{len(res.channels)} channels x {trk_b.epochs_per_block} epochs x "
+        f"{passes} passes in {sec:.3f} s = {n_ep * 1e-3 / sec:.3f}x real "
+        f"time, {launches_b['track_superblock_staged']} "
+        f"track_superblock_staged launches; lowest block-tail "
+        f"mean|I_P|/std(Q_P) {worst:.1f}")
+    return n_l1, launches["track_superblock"], \
+        launches_b["track_superblock_staged"]
+
+
+_SUMS = ("i_e", "q_e", "i_p", "q_p", "i_l", "q_l", "pilot_ip", "pilot_qp")
+
+
+def _int16_differs(tag, got, want):
+    """Elements of the int16 run ``got`` (TrackResults) that differ from
+    the int8 run ``want``'s: its correlator sums 64 times, every other
+    array equal.  Raises if any differs."""
+    import numpy as np
+    n_diff, fields = 0, []
+    for name, w in vars(want).items():
+        if not isinstance(w, np.ndarray):
+            continue
+        g = getattr(got, name)
+        differ = int((g != (INT16_SCALE * w if name in _SUMS else w)).sum())
+        if differ:
+            n_diff += differ
+            fields.append(name)
+    if n_diff or got.status != want.status:
+        raise AssertionError(f"[{tag}] the int16 run differs from the int8 "
+                             f"run in {n_diff} elements of {fields}, status "
+                             f"{got.status} against {want.status}")
+    return n_diff
+
+
+def int16_path(card: str, made, seq_res):
+    """Phase 13: phase 4's record times 64 as int16 through ``track`` (the
+    superblock kernel's int16 instantiation, one launch per superblock),
+    equal to phase 4's int8 run: the same states, block sizes and loop
+    outputs and 64 times its sums, element for element; then its first
+    second through the eager loop (the int16 per-epoch kernel); then the
+    per-block path (8 blocks x 250 epochs) on the int8 and the int16
+    record, equal the same way, and the eager loop in its place on the
+    int16 record.  Returns the launches of the four int16 kernels."""
+    import types
+    import numpy as np
+    import torch
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.ops.correlator import LAUNCHES, reset_launches
+    from cusdr_tpu_torch.parallel.timeblocks import track_time_parallel
+    from cusdr_tpu_torch.signals.defs import get_signal
+    from cusdr_tpu_torch.tracking.engine import track
+    cfg, sig = get_config("gps_l1ca"), get_signal("gps_l1ca")
+    svs, iq8, _ = made
+    iq16 = iq8.astype(np.int16) * INT16_SCALE
+    channels = seq_res.channels
+    out = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    trk = track(cfg, sig, iq16, channels, "cuda")
+    sec = time.perf_counter() - t0
+    n_ep = trk.i_p.shape[1]
+    out["track_superblock[int16]"] = LAUNCHES["track_superblock[int16]"]
+    _only("int16", dict(LAUNCHES), "track_superblock[int16]",
+          _superblocks(cfg, n_ep))
+    _int16_differs("int16", trk, seq_res.track)
+    log(f"[int16] sequential on {card}: {len(channels)} channels x {n_ep} "
+        f"epochs of the int16 record (the int8 record x {INT16_SCALE}) in "
+        f"{sec:.3f} s = {n_ep * 1e-3 / sec:.3f}x real time (int8, phase 4: "
+        f"{n_ep * 1e-3 / seq_res.timings['tracking_s']:.3f}x), "
+        f"{out['track_superblock[int16]']} track_superblock[int16] "
+        "launches; 0 elements differ from the int8 run (sums x "
+        f"{INT16_SCALE}, everything else equal)")
+    out["correlate_bank[int16]"] = eager_track(
+        card, "int16", cfg, (svs, iq16, 0.0),
+        types.SimpleNamespace(channels=channels, track=trk,
+                              timings={"tracking_s": sec}),
+        "correlate_bank[int16]", 1000)
+    tb = get_config("gps_l1ca", time_blocks=TIME_BLOCKS)
+    passes = tb.handoff_iters + 1
+    n_short = TIME_BLOCKS * 250
+    runs = {}
+    for name, iq, eager in (("int8", iq8, False), ("int16", iq16, False),
+                            ("int16 eager", iq16, True)):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        runs[name] = track_time_parallel(tb, sig, iq, channels, n_short,
+                                         TIME_BLOCKS, device="cuda",
+                                         fetch_in_kernel=False,
+                                         epoch_loop=eager)
+        sec = time.perf_counter() - t0
+        variant = ("correlate_windows" if eager
+                   else "track_superblock_staged")
+        if iq is iq16:
+            variant += "[int16]"
+            out[variant] = LAUNCHES[variant]
+        _only(f"int16-blocks {name}", dict(LAUNCHES), variant,
+              250 * passes if eager else passes)
+        log(f"[int16-blocks] per-block path on {card}, {name} record"
+            f"{', eager loop' if eager else ''}: {TIME_BLOCKS} blocks x "
+            f"{len(channels)} channels x 250 epochs x {passes} passes in "
+            f"{sec:.3f} s = {n_short * 1e-3 / sec:.3f}x real time, "
+            f"{LAUNCHES[variant]} {variant} launches")
+    _int16_differs("int16-blocks", runs["int16"], runs["int8"])
+    if not np.array_equal(runs["int16 eager"].blksize, runs["int16"].blksize):
+        raise AssertionError("[int16-blocks] the eager loop's block sizes "
+                             "differ from the staged kernel's")
+    log("[int16-blocks] 0 elements differ between the int16 and the int8 "
+        f"per-block runs (sums x {INT16_SCALE}, everything else equal)")
+    return out
+
+
 def _kernel_json(name, launches, checks):
     """One kernel's entry of the JSON line: ``ms`` / ``plain_ms`` /
     ``bound_ms`` at the first shape listed for it (its path's, the preset's
@@ -1504,17 +1822,20 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
-    # the scenes of phases 3e-10 (up to a few minutes of numpy each) are
+    # the scenes of phases 3e-13 (up to a few minutes of numpy each) are
     # made in worker processes, one each, while phases 1-3c run; all are
     # finished before phase 3e, so no scene work overlaps a receiver run
     pool = ProcessPoolExecutor(
-        max_workers=6, mp_context=multiprocessing.get_context("spawn"))
+        max_workers=9, mp_context=multiprocessing.get_context("spawn"))
     try:
         jobs = dict(main=pool.submit(scene_job, *MAIN_SCENE),
                     pvt=pool.submit(pvt_scene_job),
+                    l5=pool.submit(l5_scene_job),
                     e5a=pool.submit(scene_job, *E5A_SCENE),
                     b1c=pool.submit(scene_job, *B1C_SCENE),
-                    l5=pool.submit(l5_scene_job),
+                    glo_l1=pool.submit(scene_job, *GLO_L1_SCENE),
+                    l2c_preset=pool.submit(l2c_preset_scene_job),
+                    glo_l2=pool.submit(scene_job, *GLO_L2_SCENE),
                     l2c=pool.submit(l2c_scene_job))
         smi = environment()
         build()
@@ -1524,7 +1845,7 @@ def main() -> int:
         t0 = time.perf_counter()
         scenes = {name: job.result() for name, job in jobs.items()}
         log(f"[scenes] waited {time.perf_counter() - t0:.1f} s for the "
-            "scenes of phases 3e-10")
+            "scenes of phases 3e-13")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     # host-bound measurements run with no scene work beside them
@@ -1563,6 +1884,9 @@ def main() -> int:
         smi, "b1c-wb-blocks", b1c_cfg, scenes["b1c"], b1c_res,
         "track_superblock_staged_dual_pilot", epb=100, tail=50)
     pvt_time_parallel(smi, scenes["pvt"])
+    l2c_launches = l2c_path(smi, scenes["l2c_preset"])
+    glo_launches = glonass_path(smi, scenes["glo_l1"], scenes["glo_l2"])
+    launches.update(int16_path(smi, scenes["main"], seq_res))
     missing = [name for name in checks if not launches.get(name)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
@@ -1572,7 +1896,13 @@ def main() -> int:
                for name in checks]
     for entry in kernels:
         if entry["name"] == "track_superblock":
+            # the same kernel on the other presets' paths
             entry["launches_time_parallel"] = tp_bank
+            entry["launches_gps_l2c"] = l2c_launches
+            entry["launches_glo_l1"] = glo_launches[0]
+            entry["launches_glo_l2_time_parallel"] = glo_launches[1]
+        elif entry["name"] == "track_superblock_staged":
+            entry["launches_glo_l2_per_block"] = glo_launches[2]
     print(json.dumps({"perf_correlator": tool, "profiles": profiled}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,10 +5,13 @@ as it is).  It imports ``torch`` and never ``jax`` or the reference
 package: the numpy layers (config, constants, signals, io, nav, orbits,
 pvt, geodesy and the native ingest loader of runtime) are its own verbatim
 copies of the reference's; tracking (sequential and time-parallel),
-acquisition and the receiver pipeline are ported; the correlators are CUDA
-kernels in three sources, ``ops/csrc/superblock.cu`` (one launch tracks a
-channel bank through a superblock of epochs), ``ops/csrc/correlator.cu``
-(one epoch, windows fetched in the kernel) and
+acquisition (CDMA, FDMA and the circular-shift search with the L2C CL
+period search) and the receiver pipeline are ported for all twelve
+presets, on int8 or int16 records; the correlators are CUDA kernels in four
+sources, ``ops/csrc/superblock.cu`` (one launch tracks a channel bank
+through a superblock of epochs), ``ops/csrc/superblock_staged.cu`` (the
+same with each epoch's windows staged into shared memory),
+``ops/csrc/correlator.cu`` (one epoch, windows fetched in the kernel) and
 ``ops/csrc/correlator_staged.cu`` (one epoch, staged windows).
 
 The entry points (``Receiver``, ``python -m cusdr_tpu_torch run``) run on

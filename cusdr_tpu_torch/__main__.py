@@ -6,6 +6,8 @@ Examples:
   python -m cusdr_tpu_torch run --signal gps_l1ca --file L1.bin \
       --time-blocks 8 --handoff-iters 1
   python -m cusdr_tpu_torch run --signal gps_l1ca --file L1.bin --device cpu
+  python -m cusdr_tpu_torch run --signal glo_l1 --file G1.bin \
+      --data-type int16 --file-type 1
 """
 
 from __future__ import annotations
@@ -30,7 +32,14 @@ def main(argv=None):
     p.add_argument("--if-freq", type=float, help="override IF [Hz]")
     p.add_argument("--ms", type=int, help="ms to process")
     p.add_argument("--skip-bytes", type=int, default=0)
-    p.add_argument("--prns", help="comma-separated PRN search list")
+    p.add_argument("--prns", help="comma-separated PRN (or FDMA channel) "
+                                  "search list")
+    p.add_argument("--file-type", type=int, choices=(1, 2),
+                   help="1 = real samples, 2 = interleaved I/Q (the "
+                        "preset's default)")
+    p.add_argument("--data-type", choices=("schar", "int16"),
+                   help="sample scalar type: schar (int8, the preset's "
+                        "default) or int16")
     p.add_argument("--time-blocks", type=int, default=None,
                    help="track this many concurrent time blocks "
                         "(0/1 = sequential)")
@@ -58,7 +67,7 @@ def main(argv=None):
     if args.prns:
         over["acq_satellite_list"] = tuple(
             int(x) for x in args.prns.split(","))
-    for name in ("time_blocks", "handoff_iters"):
+    for name in ("time_blocks", "handoff_iters", "file_type", "data_type"):
         if getattr(args, name) is not None:
             over[name] = getattr(args, name)
     cfg = get_config(args.signal, **over)
@@ -71,7 +80,9 @@ def main(argv=None):
     if cfg.ms_to_process:
         # never more epochs than the record holds
         spc = cfg.samples_per_code
-        avail = (len(samples) // 2 - 3 * spc) // spc
+        n_samples = len(samples) // 2 if cfg.file_type == 2 \
+            else len(samples)
+        avail = (n_samples - 3 * spc) // spc
         n_epochs = max(min(int(cfg.ms_to_process / rx.sig.code_period_ms),
                            avail), 1)
     res = rx.run(samples, n_epochs=n_epochs)

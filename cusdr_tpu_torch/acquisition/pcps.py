@@ -1,20 +1,31 @@
-"""Batched PCPS acquisition in PyTorch (CDMA, plain-data fine stage).
+"""Batched PCPS acquisition in PyTorch.
 
 Counterpart of cusdr_tpu/acquisition/pcps.py, same names.  The reference
 runs this stage as XLA programs (no Pallas kernel); here it is complex64
-``torch.fft`` (cuFFT on a card) and plain tensor ops.  The Doppler-mixed
-signal FFT is computed once and shared by all PRNs; the coarse search
-loops over PRNs on the device and the host reads the per-PRN peaks once.
+``torch.fft`` (cuFFT on a card) and plain tensor ops.  Three coarse
+searches, as in the reference:
 
-Covered: CDMA signals with the 'pcps' method, and the fine stage's
-bit-edge, secondary-code, coherent and envelope hypothesis modes.  FDMA
-(GLONASS), the circular-shift frequency search and the long-pilot phase
-search raise ``NotImplementedError`` (ROADMAP.md Queue A item 9).
+  * CDMA 'pcps': the Doppler-mixed signal FFT is computed once and shared
+    by all PRNs; the search loops over PRNs on the device and the host
+    reads the per-PRN peaks once;
+  * FDMA (GLONASS): one shared code, each frequency channel k searched on
+    its own carrier grid ``base + k·fdma_spacing_hz``;
+  * 'circshift' (GPS L2C): the signal is mixed and transformed once per
+    sub-bin offset, and every other Doppler hypothesis is that spectrum
+    rotated by a whole number of bins.  The shifts run in batches whose
+    products stay within ``SHIFT_BATCH_BYTES`` on the device, and the best
+    shift is kept as the reference's scan keeps it.
+
+Then, for a long pilot (L2C CL), the search over its code periods (a
+matmul of the hypotheses' replicas against the wiped segment), and the
+fine stage's bit-edge, secondary-code, coherent and envelope hypothesis
+modes.
 """
 
 from __future__ import annotations
 
 import warnings
+import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -34,6 +45,10 @@ class AcquisitionResult:
     detected: np.ndarray       # bool mask (metric > threshold)
     coarse_freq: np.ndarray    # coarse-stage bin freq [Hz]
     pilot_phase: np.ndarray | None = None   # long-pilot phase hypothesis
+                                            # (L2C CL period index)
+    # host-clock seconds of the coarse search, the long-pilot phase search
+    # and the fine stage, each ending with its results on the host
+    timings: dict | None = None
 
     def best_channels(self, n: int):
         """PRNs sorted by peak metric, detected first: tuples (prn,
@@ -67,11 +82,12 @@ def _mixed_fft(slabs, f_grid, ts):
 
 def _second_peak(row, peak_phase, period: int, excl_samples: int):
     """Largest value in ``row`` outside ±excl_samples of the peak,
-    excluded periodically (the peak repeats every code period)."""
+    excluded periodically (the peak repeats every code period); rows
+    [..., lags] with peak phases [...]."""
     lags = torch.arange(row.shape[-1], device=row.device)
-    d = torch.remainder(lags - peak_phase, period)
+    d = torch.remainder(lags - peak_phase[..., None], period)
     dist = torch.minimum(d, period - d)
-    return torch.where(dist > excl_samples, row, 0.0).max()
+    return torch.where(dist > excl_samples, row, 0.0).max(dim=-1).values
 
 
 def _corr_peak(mf, cfftc, weights, n_comp, search_len=None,
@@ -111,13 +127,111 @@ def _pcps_cdma_kernel(slabs, code_fft_conj, weights, f_grid, ts,
     n_comp, nfft]; weights: [n_comp] f32; f_grid: [n_bins] f32.
     Returns (peak, bin, phase, second, floor), each [n_prn] on the device.
     """
-    if slabs.shape[0] != n_noncoh:
-        raise ValueError(f"slabs hold {slabs.shape[0]} non-coherent "
-                         f"blocks, expected {n_noncoh}")
+    _check_noncoh(slabs, n_noncoh)
     mf = _mixed_fft(slabs, f_grid, ts)
     per_prn = [_corr_peak(mf, cfftc, weights, n_comp, search_len,
                           excl_samples, period) for cfftc in code_fft_conj]
     return tuple(torch.stack(x) for x in zip(*per_prn))
+
+
+def _check_noncoh(slabs, n_noncoh: int):
+    if slabs.shape[0] != n_noncoh:
+        raise ValueError(f"slabs hold {slabs.shape[0]} non-coherent "
+                         f"blocks, expected {n_noncoh}")
+
+
+def _pcps_fdma_kernel(slabs, code_fft_conj, weights, freqs, ts,
+                      n_noncoh: int, n_comp: int, search_len: int,
+                      excl_samples: int = 0,
+                      period: Optional[int] = None):
+    """FDMA PCPS (GLONASS): one shared code, a carrier grid per frequency
+    channel.
+
+    freqs: f32 [n_chan, n_bins]; code_fft_conj: complex64 [1, n_comp,
+    nfft] (the shared code).  Returns (peak, bin, phase, second, floor),
+    each [n_chan] on the device."""
+    _check_noncoh(slabs, n_noncoh)
+    per_chan = [_corr_peak(_mixed_fft(slabs, f_grid, ts), code_fft_conj[0],
+                           weights, n_comp, search_len, excl_samples, period)
+                for f_grid in freqs]
+    return tuple(torch.stack(x) for x in zip(*per_chan))
+
+
+# bytes of one batch of the circular-shift search's products (all PRNs and
+# sub-bins of a few shifts, complex64); the inverse FFT's output and the
+# envelopes take as much again and half
+SHIFT_BATCH_BYTES = {"cuda": 2 << 30, "cpu": 128 << 20}
+
+
+def _pcps_circshift_kernel(slabs, code_fft_conj, weights, sub_offsets, ts,
+                           n_shift: int, n_comp: int, search_len: int,
+                           excl_samples: int = 0,
+                           period: Optional[int] = None,
+                           batch: Optional[int] = None):
+    """Circular-shift frequency search: the signal is mixed and transformed
+    only ``n_sub`` times (the sub-bin offsets); every other Doppler
+    hypothesis is that spectrum rotated by an integer number of bins.
+
+    slabs: complex64 [n_noncoh, nfft]; code_fft_conj: complex64 [n_prn,
+    n_comp, nfft]; sub_offsets: f32 [n_sub] absolute mix frequencies.
+    Hypothesis (m, j) is the carrier sub_offsets[j] - m·fs/nfft (the
+    spectrum's content at -m bins is brought to DC by rotating it right by
+    m).  ``batch`` shifts at a time (default: as many as keep a batch's
+    products within ``SHIFT_BATCH_BYTES``), all PRNs' correlations of a
+    batch as one batched inverse FFT.  The best is kept as the reference's
+    scan over shifts keeps it: a later shift replaces the best only with a
+    strictly larger peak, and within a shift the first index of the
+    largest value wins.  The floor is the sum, in shift order, of each
+    shift's surface mean, over ``n_shift``.
+
+    Returns (peak, shift_idx, sub_idx, phase, second, floor), each [n_prn]
+    on the device."""
+    mf = _mixed_fft(slabs, sub_offsets, ts)          # [n_sub, noncoh, nfft]
+    n_sub, nfft = mf.shape[0], mf.shape[-1]
+    n_prn = code_fft_conj.shape[0]
+    dev = mf.device
+    per = period if period is not None else search_len // 2
+    if batch is None:
+        budget = SHIFT_BATCH_BYTES.get(dev.type, SHIFT_BATCH_BYTES["cpu"])
+        batch = max(1, budget // (n_prn * mf.numel() * 8))
+    batch = min(batch, n_shift)
+    rows_of = torch.arange(n_prn, device=dev)
+    lags = torch.arange(nfft, device=dev)
+    b_val = torch.full((n_prn,), -torch.inf, device=dev)
+    b_m = torch.zeros(n_prn, dtype=torch.int64, device=dev)
+    b_sub = torch.zeros_like(b_m)
+    b_ph = torch.zeros_like(b_m)
+    b_row = torch.zeros((n_prn, search_len), device=dev)
+    b_floor = torch.zeros(n_prn, device=dev)
+    for m0 in range(0, n_shift, batch):
+        ms = torch.arange(m0, min(m0 + batch, n_shift), device=dev)
+        # rotated right by m: bin i holds the content of bin i - m
+        rolled = mf[:, :, torch.remainder(lags[None, :] - ms[:, None],
+                                          nfft)].permute(2, 0, 1, 3)
+        acc = torch.zeros((len(ms), n_prn, n_sub, search_len), device=dev)
+        for c in range(n_comp):
+            corr = torch.fft.ifft(
+                rolled[:, None] * code_fft_conj[None, :, c, None, None, :],
+                dim=-1)
+            acc = acc + weights[c] * corr[..., :search_len].abs().sum(dim=3)
+        flat = acc.reshape(len(ms), n_prn, -1)
+        k = flat.argmax(dim=-1)                              # [B, n_prn]
+        val = flat.gather(-1, k[..., None])[..., 0]
+        # the batch's first shift with its largest peak, per PRN
+        bb = val.argmax(dim=0)
+        top = val[bb, rows_of]
+        imp = top > b_val
+        k_top = k[bb, rows_of]
+        sub, ph = k_top // search_len, k_top % search_len
+        b_val = torch.where(imp, top, b_val)
+        b_m = torch.where(imp, ms[bb], b_m)
+        b_sub = torch.where(imp, sub, b_sub)
+        b_ph = torch.where(imp, ph, b_ph)
+        b_row = torch.where(imp[:, None], acc[bb, rows_of, sub], b_row)
+        for mean in flat.mean(dim=-1):
+            b_floor = b_floor + mean
+    second = _second_peak(b_row, b_ph, per, excl_samples)
+    return b_val, b_m, b_sub, b_ph, second, b_floor / n_shift
 
 
 # --------------------------------------------------------------------------
@@ -167,6 +281,30 @@ def _fine_batched(sig_r, sig_i, cps, replicas, freqs, hyp, ts,
         for j, cp in enumerate(cps)])
 
 
+def _pilot_phase_kernel(sig_r, sig_i, cps, freqs, reps, ts):
+    """Long-pilot period search over the detected PRNs.
+
+    sig_r/sig_i: [S] f32 record; cps: host ints, each PRN's segment start;
+    freqs: f32 [n_det] coarse carriers; reps: int8 [n_det, n_hyp, spc]
+    pilot replicas, one row per period hypothesis.  Each segment is wiped
+    of its carrier and correlated with every hypothesis as one
+    [n_hyp, spc] · [spc] product per PRN (``torch.matmul``; the reference
+    leaves this product to XLA, outside any Pallas kernel).  Returns the
+    argmax hypothesis [n_det] on the device."""
+    spc = reps.shape[2]
+    t = torch.arange(spc, dtype=torch.float32, device=sig_r.device)
+    phase = (float(2.0 * np.pi * ts) * freqs)[:, None] * t[None, :]
+    c, sn = torch.cos(phase), torch.sin(phase)
+    sr = torch.stack([sig_r[cp:cp + spc] for cp in cps])
+    si = torch.stack([sig_i[cp:cp + spc] for cp in cps])
+    wr = sr * c + si * sn
+    wi = si * c - sr * sn
+    repf = reps.float()
+    pr = torch.matmul(repf, wr[..., None])[..., 0]
+    pi = torch.matmul(repf, wi[..., None])[..., 0]
+    return torch.argmax(torch.hypot(pr, pi), dim=1)
+
+
 def _bit_edge_hypotheses(n_codes: int, window: int) -> np.ndarray:
     """Sliding all-ones windows: nav-bit-edge search."""
     n_hyp = n_codes - window + 1
@@ -196,19 +334,15 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
     """Run coarse+fine acquisition over ``prn_list`` on ``device``.
 
     samples: complex IF samples; needs at least
-    (acq_non_coh_time + 1 + fine_n_codes) code periods.
+    (acq_non_coh_time + 1 + fine_n_codes) code periods.  For an FDMA
+    signal the PRNs are the frequency channels k, and each detected
+    carrier includes the channel's offset ``k·fdma_spacing_hz``.
     """
     from .resample import maybe_resample, recover
-    if sig.fdma or cfg.acq_method != "pcps":
-        raise NotImplementedError(
-            "FDMA and circular-shift acquisition are not ported yet "
-            "(ROADMAP.md Queue A item 9)")
-    if sig.pilot_phase_hypotheses > 1 and sig.pilot_code is not None:
-        raise NotImplementedError(
-            "the long-pilot phase search is not ported yet (ROADMAP.md "
-            "Queue A item 9)")
     device = torch.device(device)
     samples, cfg, rs_info = maybe_resample(np.asarray(samples), cfg)
+    timings = {}
+    t0 = time.perf_counter()
 
     prns = np.asarray(list(prn_list if prn_list is not None
                            else cfg.acq_satellite_list))
@@ -236,14 +370,17 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
     slabs[:, :win_len] = np.asarray(samples)[idx]
 
     # ---- conjugate code spectra [n_prn, n_comp, nfft] --------------------
+    # an FDMA signal has one code for every channel: fn(0)
     comps = sig.acq_code_fns()
     n_comp = len(comps)
     weights = np.asarray(sig.acq_weights[:n_comp], np.float32)
-    cfc = np.empty((len(prns), n_comp, nfft), np.complex64)
-    for i, prn in enumerate(prns):
+    code_prns = prns[:1] if sig.fdma else prns
+    cfc = np.empty((len(code_prns), n_comp, nfft), np.complex64)
+    for i, prn in enumerate(code_prns):
         for c, fn in enumerate(comps):
-            table = sample_code(fn(int(prn)), sig.elements_per_chip,
-                                sig.chip_rate_hz, fs, spc)
+            table = sample_code(fn(0 if sig.fdma else int(prn)),
+                                sig.elements_per_chip, sig.chip_rate_hz, fs,
+                                spc)
             padded = np.zeros(nfft, np.float32)
             padded[:spc_c] = np.tile(table.astype(np.float32), n_coh)
             cfc[i, c] = np.conj(np.fft.fft(padded))
@@ -253,14 +390,45 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
     n_bins = cfg.num_freq_bins
     base = (cfg.if_freq + band - step * np.arange(n_bins)).astype(np.float32)
     excl = int(round(fs / sig.chip_rate_hz)) + 1   # ±1 chip exclusion
-    peak, bin_idx, phase_idx, second, floor = (
-        x.cpu().numpy() for x in _pcps_cdma_kernel(
-            torch.from_numpy(slabs).to(device),
-            torch.from_numpy(cfc).to(device),
-            torch.from_numpy(weights).to(device),
-            torch.from_numpy(base).to(device), ts,
-            n_noncoh=noncoh, n_comp=n_comp, search_len=search_len,
-            excl_samples=excl, period=spc))
+    slabs_d = torch.from_numpy(slabs).to(device)
+    cfc_d = torch.from_numpy(cfc).to(device)
+    weights_d = torch.from_numpy(weights).to(device)
+    kw = dict(n_comp=n_comp, search_len=search_len, excl_samples=excl,
+              period=spc)
+    coarse_freq = None
+    if sig.fdma:
+        # the 'PRN' is the frequency channel k
+        offs = (prns * sig.fdma_spacing_hz).astype(np.float32)
+        freqs = np.ascontiguousarray(base[None, :] + offs[:, None])
+        out = _pcps_fdma_kernel(slabs_d, cfc_d, weights_d,
+                                torch.from_numpy(freqs).to(device), ts,
+                                n_noncoh=noncoh, **kw)
+        peak, bin_idx, phase_idx, second, floor = (x.cpu().numpy()
+                                                   for x in out)
+    elif cfg.acq_method == "circshift":
+        # one signal FFT per sub-bin; Doppler via spectrum rotation
+        dfreq = fs / nfft
+        n_sub = max(1, int(np.ceil(dfreq / step)))
+        sub_step = dfreq / n_sub
+        n_shift = int(round(2.0 * band / dfreq)) + 1
+        f_max = cfg.if_freq + band
+        sub_offsets = (f_max - sub_step * np.arange(n_sub)
+                       ).astype(np.float32)
+        out = _pcps_circshift_kernel(
+            slabs_d, cfc_d, weights_d, torch.from_numpy(sub_offsets).to(
+                device), ts, n_shift=n_shift, **kw)
+        peak, m_idx, sub_idx, phase_idx, second, floor = (
+            x.cpu().numpy() for x in out)
+        # carrier = f_max - m·Δf - j·sub_step
+        coarse_freq = f_max - m_idx * dfreq - sub_idx * sub_step
+        bin_idx = np.zeros(len(prns), np.int64)
+    else:
+        freqs = np.broadcast_to(base, (len(prns), n_bins))
+        out = _pcps_cdma_kernel(slabs_d, cfc_d, weights_d,
+                                torch.from_numpy(base).to(device), ts,
+                                n_noncoh=noncoh, **kw)
+        peak, bin_idx, phase_idx, second, floor = (x.cpu().numpy()
+                                                   for x in out)
 
     if cfg.acq_metric == "second_peak":
         metric = peak / np.maximum(second, 1e-12)
@@ -268,7 +436,9 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
         # noise-floor-referenced GLRT (see the reference's acquire)
         metric = (np.sqrt(np.pi) / 2.0) * peak / np.maximum(floor, 1e-12)
     detected = metric > cfg.acq_threshold
-    coarse_freq = base[bin_idx]
+    if coarse_freq is None:
+        coarse_freq = freqs[np.arange(len(prns)), bin_idx]
+    timings["coarse_s"] = time.perf_counter() - t0
 
     # ---- fine frequency stage --------------------------------------------
     n_codes = fine_n_codes or cfg.fine_n_codes or max(
@@ -290,6 +460,9 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
         psec = sig.pilot_secondary(int(prn)) \
             if sig.pilot_secondary is not None else None
         if sig.pilot_code is not None and psec is None:
+            # a pilot with no secondary: fully coherent (L2C CL, B2a);
+            # a long pilot's replica starts at the period the CL search
+            # found
             return sig.pilot_code, np.ones((1, n_codes), np.float32)
         if psec is not None and len(psec) <= 100:
             return sig.pilot_code, _secondary_hypotheses(psec, n_codes)
@@ -304,7 +477,10 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
             return sig.data_code, np.eye(n_codes, dtype=np.float32)
         return sig.data_code, None     # envelope mode
 
+    pilot_phase = np.zeros(len(prns), np.int64)
     det_idx = [i for i in range(len(prns)) if detected[i]]
+    timings["pilot_phase_s"] = 0.0
+    t0 = time.perf_counter()
     if det_idx:
         n_det = len(det_idx)
         # code-aligned segment starts, stepped back whole periods when
@@ -325,14 +501,47 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
         seg_i = torch.from_numpy(np.imag(seg).astype(np.float32)).to(device)
         cfreqs = coarse_freq[det_idx].astype(np.float32)
 
+        # ---- long-pilot phase search (L2C CL) ----------------------------
+        nhyp = sig.pilot_phase_hypotheses
+        ph_seg = None
+        if nhyp > 1 and sig.pilot_code is not None:
+            t_pilot = time.perf_counter()
+            epc = sig.elements_per_chip
+            n_elem_period = sig.code_length_chips * epc
+            eidx = np.floor(np.arange(spc) * (sig.chip_rate_hz / fs)
+                            * epc).astype(np.int64)
+            reps = np.empty((n_det, nhyp, spc), np.int8)
+            for j, i in enumerate(det_idx):
+                pilot_elems = sig.pilot_code(int(prns[i]))
+                shift = (eidx[None, :]
+                         + (np.arange(nhyp) * n_elem_period)[:, None]
+                         ) % len(pilot_elems)
+                reps[j] = pilot_elems[shift]
+            ph_seg = _pilot_phase_kernel(
+                seg_r, seg_i, cps, torch.from_numpy(cfreqs).to(device),
+                torch.from_numpy(reps).to(device), ts).cpu().numpy()
+            for j, i in enumerate(det_idx):
+                # the hypothesis indexes the segment at cps[j]; convert to
+                # the pilot period at phase_idx[i] (the tracking start)
+                back_periods = (int(phase_idx[i]) - int(cps[j])) // spc
+                pilot_phase[i] = (int(ph_seg[j]) + back_periods) % nhyp
+            timings["pilot_phase_s"] = time.perf_counter() - t_pilot
+
         replicas = np.empty((n_det, n_codes * spc), np.float32)
         Hs = None
         envelope = False
         for j, i in enumerate(det_idx):
             code_fn, H = fine_setup(int(prns[i]))
+            # a pilot-based fine stage on a long pilot starts its replica
+            # at the period found for the SEGMENT at cps[j]
+            fine_offset_chips = 0.0
+            if ph_seg is not None and code_fn is sig.pilot_code:
+                fine_offset_chips = float(int(ph_seg[j])
+                                          * sig.code_length_chips)
             replicas[j] = sample_code(
-                code_fn(int(prns[i])), sig.elements_per_chip,
-                sig.chip_rate_hz, fs, n_codes * spc).astype(np.float32)
+                code_fn(0 if sig.fdma else int(prns[i])),
+                sig.elements_per_chip, sig.chip_rate_hz, fs, n_codes * spc,
+                code_phase_chips=fine_offset_chips).astype(np.float32)
             envelope = H is None
             if Hs is None:
                 Hs = np.empty((n_det,) + (np.ones((1, n_codes))
@@ -354,9 +563,11 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
             code_phase[i] = int(phase_idx[i])
             code_phase[i], carr_freq[i] = recover(code_phase[i],
                                                   carr_freq[i], rs_info)
+    timings["fine_s"] = (time.perf_counter() - t0
+                         - timings["pilot_phase_s"])
 
     return AcquisitionResult(
         prns=prns, carr_freq=carr_freq, code_phase=code_phase,
         peak_metric=np.asarray(metric), detected=np.asarray(detected),
-        coarse_freq=np.asarray(coarse_freq),
-        pilot_phase=np.zeros(len(prns), np.int64))
+        coarse_freq=np.asarray(coarse_freq), pilot_phase=pilot_phase,
+        timings=timings)

@@ -41,6 +41,14 @@ raises; on a CPU tensor it runs the ``*_plain`` version beside it
 (``track_superblock_bank`` takes CUDA tensors only).  Each launch adds one
 to ``LAUNCHES[<variant>]``.
 
+The record's samples are int8 or int16 I/Q (``cfg.data_type`` "schar" or
+"int16").  ``correlate_bank``, ``correlate_windows`` and the two superblock
+kernels are instantiated for both (a ``char2`` or ``short2`` load per
+sample, then the same f32 arithmetic); the wrapper picks the library symbol
+by the tensor's dtype (``<symbol>_int16``) and counts an int16 launch under
+``<variant>[int16]``.  The plain versions convert the samples to f32 and do
+not care which.  The phase-ramp and table-carrier prototypes take int8.
+
 What bounds the kernels on an H100, and what their design does about it:
 per sample the work is an int8 sample read, a few replica reads per bank
 and ~20-45 FLOPs; at the ported paths' 12-96 rows x 18 008-180 008 samples
@@ -100,11 +108,27 @@ STAGED_SUPERBLOCK_VARIANTS = ("track_superblock_staged",
 # streaming multiprocessors of the H100: a bank takes as many thread blocks
 # per channel row (a cluster, at most 8) as fit on the card at once
 N_SMS = 132
-# kernel launches since the last reset, by variant (chip_smoke.py reads them
-# to show each path ran on its kernel)
+# record sample types: the suffix of the library symbol that reads them
+SAMPLE_SYMBOLS = {torch.int8: "", torch.int16: "_int16"}
+_INT16_VARIANTS = tuple(f"{v}[int16]" for v in (
+    VARIANTS + WINDOW_VARIANTS + SUPERBLOCK_VARIANTS
+    + STAGED_SUPERBLOCK_VARIANTS))
+# kernel launches since the last reset, by variant and sample type
+# (chip_smoke.py reads them to show each path ran on its kernel)
 LAUNCHES = dict.fromkeys(VARIANTS + WINDOW_VARIANTS + (
     "correlate_windows_ramp", "correlate_windows_table")
-    + SUPERBLOCK_VARIANTS + STAGED_SUPERBLOCK_VARIANTS, 0)
+    + SUPERBLOCK_VARIANTS + STAGED_SUPERBLOCK_VARIANTS + _INT16_VARIANTS, 0)
+
+
+def launch_name(variant: str, dtype) -> str:
+    """The launch count of ``variant`` on samples of ``dtype``:
+    ``variant`` for int8, ``variant[int16]`` for int16."""
+    return variant if dtype == torch.int8 else f"{variant}[int16]"
+
+
+def _sample_symbol(fn: str, samples) -> str:
+    """The library symbol ``fn`` for the dtype of ``samples``."""
+    return fn + SAMPLE_SYMBOLS[samples.dtype]
 
 
 def reset_launches() -> None:
@@ -173,6 +197,12 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
                 p, p, p, p, p, p, p, p, i32, i32, i32, i64, p],
             "correlate_windows_table_launch": [
                 p, p, p, p, p, p, p, p, p, i32, i32, i32, i64, p]}
+    # every launch reading the record has an int16 twin of the same
+    # signature
+    signatures.update({fn + "_int16": argtypes
+                       for fn, argtypes in list(signatures.items())
+                       if fn.endswith("_launch") and "_ramp" not in fn
+                       and "_table" not in fn})
     for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
@@ -225,8 +255,7 @@ def _check_vectors(dev, c, named):
 def _check(iq, off, table, wrow, start, alpha, remc, shi, slo, bsz, k,
            blk, ptable, pstart, palpha):
     dev = iq.device
-    if iq.dtype != torch.int8 or iq.dim() != 1 or iq.numel() % 2:
-        raise ValueError("iq must be a 1-D int8 tensor of interleaved I/Q")
+    _check_samples(iq)
     if table.dtype != torch.int8 or table.dim() != 2:
         raise ValueError("table must be a 2-D int8 tensor [R, L]")
     c = off.shape[0]
@@ -263,6 +292,13 @@ def _check(iq, off, table, wrow, start, alpha, remc, shi, slo, bsz, k,
                             ("palpha", palpha, torch.float32)))
 
 
+def _check_samples(iq):
+    if (iq.dtype not in SAMPLE_SYMBOLS or iq.dim() != 1
+            or iq.numel() % 2):
+        raise ValueError("iq must be a 1-D int8 or int16 tensor of "
+                         "interleaved I/Q")
+
+
 def _clamp(x, size: int, win: int):
     """Clamp window offsets as ``jax.lax.dynamic_slice`` clamps them: a
     negative offset counts from the end, then a window that would run past
@@ -296,8 +332,9 @@ def _uv_carrier(remc, shi, slo, blk: int):
 
 
 def _baseband(siq, cosw, sinw, bsz):
-    """Carrier wipe-off of the sample windows siq [C, blk, 2] int8, masked
-    to each row's first bsz samples.  Returns (bb_i, bb_q) [C, blk] f32."""
+    """Carrier wipe-off of the sample windows siq [C, blk, 2] (int8 or
+    int16), masked to each row's first bsz samples.  Returns (bb_i, bb_q)
+    [C, blk] f32."""
     si, sq = siq[..., 0].float(), siq[..., 1].float()
     n = torch.arange(siq.shape[1], device=siq.device)
     mask = (n[None, :] < bsz[:, None]).float()
@@ -339,10 +376,10 @@ def correlate_bank_plain(iq, off, table, wrow, start, alpha, remc, shi,
                          pilot_w2: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version of the kernel, same signature and layout.
 
-    iq: [2S] int8 interleaved I/Q record; off: [C] int64 window start
-    (samples into iq); table: [R, L] int8 replica tables; wrow: [C] int64
-    table row; start: [C] int64 replica window start (tap E of sample 0);
-    alpha/remc/shi/slo: [C] f32 interpolation fraction, carrier phase
+    iq: [2S] int8 or int16 interleaved I/Q record; off: [C] int64 window
+    start (samples into iq); table: [R, L] int8 replica tables; wrow: [C]
+    int64 table row; start: [C] int64 replica window start (tap E of
+    sample 0); alpha/remc/shi/slo: [C] f32 interpolation fraction, carrier phase
     [cycles] and the u/v carrier steps frac(128·inc), frac(inc); bsz: [C]
     int64 valid samples.  Returns [C, 8] f32: iE qE iP qP iL qL 0 0.
 
@@ -405,8 +442,9 @@ def correlate_bank(iq, off, table, wrow, start, alpha, remc, shi, slo,
     c = off.shape[0]
     out = torch.empty((c, 16 if n_pilots else 8), dtype=torch.float32,
                       device=iq.device)
-    lib = load_library()
-    rc = lib.correlate_bank_launch(
+    launch = getattr(load_library(), _sample_symbol("correlate_bank_launch",
+                                                     iq))
+    rc = launch(
         iq.data_ptr(), off.data_ptr(), table.data_ptr(), wrow.data_ptr(),
         start.data_ptr(), alpha.data_ptr(), remc.data_ptr(),
         shi.data_ptr(), slo.data_ptr(), bsz.data_ptr(), out.data_ptr(),
@@ -414,7 +452,7 @@ def correlate_bank(iq, off, table, wrow, start, alpha, remc, shi, slo,
         p_ptr, ps_ptr, pa_ptr, p_len, n_pilots, int(pilot_rot) % 4,
         int(pilot2_rot) % 4, float(pilot_w1), float(pilot_w2),
         torch.cuda.current_stream(iq.device).cuda_stream)
-    _launched(VARIANTS[n_pilots], rc)
+    _launched(launch_name(VARIANTS[n_pilots], iq.dtype), rc)
     return out
 
 
@@ -427,8 +465,8 @@ def stage_windows(iq, off, table, wrow, start, *, k: int, blk: int,
     """Slice each row's windows out of the record and the tables, as the
     reference stages them with ``dynamic_slice`` before its staged kernel
     (offsets clamped by ``_clamp``).  Arguments as ``correlate_bank_plain``.
-    Returns (siq [C, blk, 2], wt [C, win], wp [C, win] / [C, 2, win] /
-    None), win = blk + 2k + 1, all int8 and contiguous."""
+    Returns (siq [C, blk, 2] of iq's dtype, wt [C, win], wp [C, win] /
+    [C, 2, win] / None, int8), win = blk + 2k + 1, all contiguous."""
     win = blk + 2 * k + 1
     dev = iq.device
     off = _clamp(off, iq.shape[0] // 2, blk)
@@ -451,9 +489,10 @@ def stage_windows(iq, off, table, wrow, start, *, k: int, blk: int,
 def _check_windows(siq, wt, k, named_f32, bsz, wp=None, palpha=None):
     """Shapes, types and devices of staged-window arguments; returns
     (C, blk, win)."""
-    if siq.dtype != torch.int8 or siq.dim() != 3 or siq.shape[2] != 2:
-        raise ValueError("siq must be an int8 tensor [C, blk, 2] of I/Q "
-                         "sample windows")
+    if (siq.dtype not in SAMPLE_SYMBOLS or siq.dim() != 3
+            or siq.shape[2] != 2):
+        raise ValueError("siq must be an int8 or int16 tensor [C, blk, 2] "
+                         "of I/Q sample windows")
     c, blk, _ = siq.shape
     if k < 1:
         raise ValueError(f"E-L spacing k={k} samples must be >= 1")
@@ -493,10 +532,17 @@ def _on_card(name: str, samples, *others):
         raise ValueError(f"no correlator for device {samples.device}")
     if not all(x.is_contiguous() for x in (samples, *others)):
         raise ValueError(f"{name}: samples and replicas must be contiguous")
-    if samples.data_ptr() % 2:
-        # the kernels read each I/Q pair as one 2-byte char2
-        raise ValueError("the samples must start at an even address")
+    if samples.data_ptr() % (2 * samples.element_size()):
+        # the kernels read each I/Q pair as one char2 (int8) or short2
+        # (int16)
+        raise ValueError("the samples must start at an even address (a "
+                         "multiple of 4 for int16)")
     return True
+
+
+def _int8_only(name: str, siq) -> None:
+    if siq.dtype != torch.int8:
+        raise ValueError(f"{name} takes int8 sample windows, got {siq.dtype}")
 
 
 def _launched(name: str, rc: int) -> None:
@@ -512,10 +558,10 @@ def correlate_windows_plain(siq, wt, alpha, remc, shi, slo, bsz, *, k: int,
                             pilot_w2: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version of ``correlate_windows``.
 
-    siq: [C, blk, 2] int8 sample windows, I and Q of a sample side by side
-    (the record's own interleaving, so staging is one gather); wt: [C, win]
-    int8 replica windows, win >= blk + 2k + 1, tap E of sample 0 at column
-    0; alpha/remc/shi/slo: [C] f32 as in ``correlate_bank_plain``; bsz: [C]
+    siq: [C, blk, 2] int8 or int16 sample windows, I and Q of a sample side
+    by side (the record's own interleaving, so staging is one gather); wt:
+    [C, win] int8 replica windows, win >= blk + 2k + 1, tap E of sample 0
+    at column 0; alpha/remc/shi/slo: [C] f32 as in ``correlate_bank_plain``; bsz: [C]
     int64 valid samples; wp: pilot windows [C, win] or [C, 2, win] (dual
     bank) with fraction palpha [C] f32.  Returns [C, 8] or, with pilot
     windows, [C, 16], laid out as ``correlate_bank_plain``'s."""
@@ -562,13 +608,15 @@ def correlate_windows(siq, wt, alpha, remc, shi, slo, bsz, *, k: int,
         wp_ptr, pa_ptr = wp.data_ptr(), palpha.data_ptr()
     out = torch.empty((c, 16 if n_pilots else 8), dtype=torch.float32,
                       device=siq.device)
-    rc = load_library("correlator_staged").correlate_windows_launch(
+    launch = getattr(load_library("correlator_staged"),
+                     _sample_symbol("correlate_windows_launch", siq))
+    rc = launch(
         siq.data_ptr(), wt.data_ptr(), wp_ptr, alpha.data_ptr(), pa_ptr,
         remc.data_ptr(), shi.data_ptr(), slo.data_ptr(), bsz.data_ptr(),
         out.data_ptr(), c, blk, int(k), win, int(bool(interp_taps)),
         n_pilots, int(pilot_rot) % 4, int(pilot2_rot) % 4, float(pilot_w1),
         float(pilot_w2), torch.cuda.current_stream(siq.device).cuda_stream)
-    _launched(WINDOW_VARIANTS[n_pilots], rc)
+    _launched(launch_name(WINDOW_VARIANTS[n_pilots], siq.dtype), rc)
     return out
 
 
@@ -599,6 +647,7 @@ def correlate_windows_ramp(siq, wt, alpha, remc, shi, slo, bsz, *,
     if not _on_card("correlate_windows_ramp", siq, wt):
         return correlate_windows_ramp_plain(siq, wt, alpha, remc, shi, slo,
                                             bsz, k=k)
+    _int8_only("correlate_windows_ramp", siq)
     c, blk, win = _check_windows(
         siq, wt, k, (("alpha", alpha), ("remc", remc), ("shi", shi),
                      ("slo", slo)), bsz)
@@ -647,6 +696,7 @@ def correlate_windows_table(siq, wt, tc, ts, alpha, c0, s0, bsz, *,
     if not _on_card("correlate_windows_table", siq, wt, tc, ts):
         return correlate_windows_table_plain(siq, wt, tc, ts, alpha, c0, s0,
                                              bsz, k=k)
+    _int8_only("correlate_windows_table", siq)
     c, blk, win = _check_windows(
         siq, wt, k, (("alpha", alpha), ("c0", c0), ("s0", s0)), bsz)
     _check_basis(siq, tc, ts)
@@ -689,8 +739,7 @@ def _superblock_args(name, iq, sb_start, table, ptable, state_f64,
                          f"on {dev}")
     banks = (table,) if ptable is None else (table, ptable)
     _on_card(name, iq, *banks)
-    if iq.dtype != torch.int8 or iq.dim() != 1 or iq.numel() % 2:
-        raise ValueError("iq must be a 1-D int8 tensor of interleaved I/Q")
+    _check_samples(iq)
     if table.dtype != torch.int8 or table.dim() != 2:
         raise ValueError("table must be a 2-D int8 tensor [R, L]")
     if state_f64.dim() != 2 or state_f64.shape[0] != 12 \
@@ -773,8 +822,8 @@ def track_superblock_bank(iq, sb_start: int, table, ptable, state_f64,
     launch (csrc/superblock.cu).  CUDA tensors only: a build or launch
     failure raises, and on the CPU the caller runs the eager epoch loop.
 
-    iq: [2S] int8 interleaved I/Q record, sample 0 at absolute index
-    ``sb_start``; table: [R, L] int8 replica tables, ptable: None, [R, Lp]
+    iq: [2S] int8 or int16 interleaved I/Q record, sample 0 at absolute
+    index ``sb_start``; table: [R, L] int8 replica tables, ptable: None, [R, Lp]
     or [R, 2, Lp] pilot tables (row c reads table row c % R); state_f64:
     [12, C] f64, ``ChannelState``'s f64 fields in order; abs_sample [C]
     int64, pilot_period [C] int32, active [C] bool; end_sample: [C] int64
@@ -797,10 +846,11 @@ def track_superblock_bank(iq, sb_start: int, table, ptable, state_f64,
         up_margin)
     if cluster is None:
         cluster = cluster_size(state_f64.shape[1])
-    rc = load_library("superblock").track_superblock_launch(
-        ctypes.byref(args), int(bool(params.interp_taps)), n_pilots,
-        int(cluster), torch.cuda.current_stream(iq.device).cuda_stream)
-    _launched(SUPERBLOCK_VARIANTS[n_pilots], rc)
+    launch = getattr(load_library("superblock"),
+                     _sample_symbol("track_superblock_launch", iq))
+    rc = launch(ctypes.byref(args), int(bool(params.interp_taps)), n_pilots,
+                int(cluster), torch.cuda.current_stream(iq.device).cuda_stream)
+    _launched(launch_name(SUPERBLOCK_VARIANTS[n_pilots], iq.dtype), rc)
     return new, outs
 
 
@@ -848,15 +898,17 @@ class StagePlan(NamedTuple):
         return self.uv_bytes + self.n_stages * self.stage_bytes(n_pilots)
 
 
-def stage_plan(blk: int, k: int, n_pilots: int, cluster: int) -> StagePlan:
+def stage_plan(blk: int, k: int, n_pilots: int, cluster: int, *,
+               sample_bytes: int = 2) -> StagePlan:
     """Lay out the staged superblock kernel's ring for windows of ``blk``
-    samples, E-L spacing ``k``, ``n_pilots`` pilot banks and ``cluster``
-    thread blocks per row: each block's share of the window in the fewest
+    samples of ``sample_bytes`` bytes (2 for int8 I/Q, 4 for int16), E-L
+    spacing ``k``, ``n_pilots`` pilot banks and ``cluster`` thread blocks
+    per row: each block's share of the window in the fewest
     runs (chunks) of which two stages fit in ``SMEM_BUDGET`` beside the
     carrier factors, and as many stages as fit, 2 to ``MAX_STAGES`` and at
     most an epoch's chunks + 1.  A chunk is a whole number of the block's
     512-thread strides (a cluster's, of 128-sample carrier steps).  A
-    sample buffer holds a chunk's 2·chunk bytes plus the prefetch's spread,
+    sample buffer holds a chunk's samples plus the prefetch's spread,
     a replica buffer the chunk + 2k + 1 bytes its taps read plus the spread,
     each widened to the 16-byte grid.  Fewer chunks mean fewer waits and
     copies per epoch: with one, the producer copies only while the epoch is
@@ -867,7 +919,8 @@ def stage_plan(blk: int, k: int, n_pilots: int, cluster: int) -> StagePlan:
     uv = _round_up(4 * (2 * -(-blk // 128) + 2 * 128), 128)
     for runs in range(1, -(-share // step) + 1):
         chunk = _round_up(-(-share // runs), step)
-        samp = _round_up(2 * (chunk + SAMPLE_SPREAD) + pad, _STAGE_ALIGN)
+        samp = _round_up(sample_bytes * (chunk + SAMPLE_SPREAD) + pad,
+                         _STAGE_ALIGN)
         rep = _round_up(chunk + 2 * k + 1 + sum(PREFETCH_SPREAD) + pad,
                         _STAGE_ALIGN)
         stage = samp + (1 + n_pilots) * rep
@@ -882,20 +935,21 @@ def stage_plan(blk: int, k: int, n_pilots: int, cluster: int) -> StagePlan:
 
 
 def staged_ranges(plan: StagePlan, j: int, rank: int, offs, starts,
-                  k: int, blk: int):
+                  k: int, blk: int, *, sample_bytes: int = 2):
     """What the kernel copies for chunk ``j`` of block ``rank``'s run of an
     epoch (``issue_chunk`` of csrc/superblock_staged.cu): per buffer (the
     samples at a window offset within ``offs`` = (least, greatest); a
     replica bank per ``(lo, hi)`` in ``starts``, its window's least and
     greatest start), the byte range [x0, x1) asked for and the first byte
     ``lo`` of its aligned copy, in units of the tensor's bytes from the
-    window's sample 0 / tap E of sample 0 at start 0.  Returns
+    window's sample 0 (``sample_bytes`` a sample) / tap E of sample 0 at
+    start 0.  Returns
     [(lo, x0, x1)]; all zero past the window."""
     n0 = (rank * plan.per_rank + j) * plan.chunk
     n1 = min(n0 + plan.chunk, blk)
     if n0 >= n1:
         return [(0, 0, 0)] * (1 + len(starts))
-    out = [(2 * (offs[0] + n0), 2 * (offs[1] + n1))]
+    out = [(sample_bytes * (offs[0] + n0), sample_bytes * (offs[1] + n1))]
     out += [(lo + n0, hi + n1 + 2 * k + 1) for lo, hi in starts]
     return [(x0 // _STAGE_ALIGN * _STAGE_ALIGN, x0, x1) for x0, x1 in out]
 
@@ -963,11 +1017,14 @@ def track_superblock_staged_bank(iq, sb_start: int, table, ptable,
     c = state_f64.shape[1]
     if cluster is None:
         cluster = cluster_size(c)
-    plan = stage_plan(params.blk, params.k_spacing, n_pilots, int(cluster))
+    plan = stage_plan(params.blk, params.k_spacing, n_pilots, int(cluster),
+                      sample_bytes=2 * iq.element_size())
     slow = torch.zeros(c, dtype=torch.int32, device=iq.device)
-    rc = load_library("superblock_staged").track_superblock_staged_launch(
-        ctypes.byref(args), int(bool(params.interp_taps)), n_pilots,
-        int(cluster), *plan, slow.data_ptr(),
-        torch.cuda.current_stream(iq.device).cuda_stream)
-    _launched(STAGED_SUPERBLOCK_VARIANTS[n_pilots], rc)
+    launch = getattr(load_library("superblock_staged"),
+                     _sample_symbol("track_superblock_staged_launch", iq))
+    rc = launch(ctypes.byref(args), int(bool(params.interp_taps)), n_pilots,
+                int(cluster), *plan, slow.data_ptr(),
+                torch.cuda.current_stream(iq.device).cuda_stream)
+    _launched(launch_name(STAGED_SUPERBLOCK_VARIANTS[n_pilots], iq.dtype),
+              rc)
     return new, outs, slow

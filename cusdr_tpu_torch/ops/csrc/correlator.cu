@@ -6,7 +6,8 @@
 // tap modes.  Per channel row c it computes, over the valid samples n in
 // [0, bsz[c]) of the row's window,
 //
-//   x[n]   = I + jQ       int8 record at sample off[c] + n (interleaved I/Q)
+//   x[n]   = I + jQ       int8 or int16 record at sample off[c] + n
+//                         (interleaved I/Q)
 //   bb[n]  = x[n] * exp(-j 2 pi (remc + inc * n))        carrier wipe-off
 //   w(m)   = tab[wrow[c]][start[c] + m]                   int8 replica
 //   tap(d) = w(n + d) + alpha * (w(n + d + 1) - w(n + d))  (interp_taps)
@@ -29,7 +30,12 @@
 // by about blk * 2^-24 cycles.  u and v are computed once per block into
 // shared memory.
 //
-// What bounds it on an H100: per sample it reads 2 bytes of record and about
+// The record's sample type picks the instantiation: `correlate_bank_launch`
+// reads int8 I/Q (char2), `correlate_bank_launch_int16` int16 I/Q (short2);
+// the replica tables are int8 in both.
+//
+// What bounds it on an H100: per sample it reads 2 bytes of record (4 of an
+// int16 record) and about
 // 2 bytes of replica per bank (each window is read from device memory once;
 // neighbouring taps hit the cache) and does about 20 FLOPs plus 12 per pilot
 // bank.  At the shapes of the ported paths (12 x 18 008 samples per 1 ms
@@ -51,9 +57,9 @@ namespace {
 
 using namespace cusdr;
 
-template <bool kInterp, int kPilots>
+template <bool kInterp, int kPilots, class Sample>
 __global__ void __launch_bounds__(kThreads)
-correlate_bank_kernel(const int8_t* __restrict__ iq,
+correlate_bank_kernel(const Sample* __restrict__ iq,
                       const int64_t* __restrict__ off,
                       const int8_t* __restrict__ table,
                       const int64_t* __restrict__ wrow,
@@ -76,8 +82,7 @@ correlate_bank_kernel(const int8_t* __restrict__ iq,
 
   // The wrapper has clamped off, start and pstart so every read is in
   // bounds.  Pilot tables are [R, kPilots, ptable_len].
-  const char2* __restrict__ x =
-      reinterpret_cast<const char2*>(iq) + off[c];
+  const Sample* __restrict__ x = iq + off[c];
   const int8_t* __restrict__ w = table + wrow[c] * table_len + start[c];
   const int8_t* pw0 = nullptr;
   const int8_t* pw1 = nullptr;
@@ -94,7 +99,7 @@ correlate_bank_kernel(const int8_t* __restrict__ iq,
                                   pilot2_rot, w1, w2);
 }
 
-template <bool kInterp, int kPilots>
+template <bool kInterp, int kPilots, class Sample>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t s,
                    const void* iq, const void* off, const void* table,
                    const void* wrow, const void* start, const void* alpha,
@@ -103,8 +108,9 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t s,
                    const void* palpha, void* out, int blk, int k,
                    int64_t table_len, int64_t ptable_len, int pilot_rot,
                    int pilot2_rot, float w1, float w2) {
-  correlate_bank_kernel<kInterp, kPilots><<<grid, kThreads, smem, s>>>(
-      static_cast<const int8_t*>(iq), static_cast<const int64_t*>(off),
+  correlate_bank_kernel<kInterp, kPilots, Sample>
+      <<<grid, kThreads, smem, s>>>(
+      static_cast<const Sample*>(iq), static_cast<const int64_t*>(off),
       static_cast<const int8_t*>(table), static_cast<const int64_t*>(wrow),
       static_cast<const int64_t*>(start), static_cast<const float*>(alpha),
       static_cast<const float*>(remc), static_cast<const float*>(shi),
@@ -116,10 +122,9 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t s,
   return cudaGetLastError();
 }
 
-}  // namespace
-
 // Pilot arguments are ignored (and may be null) when n_pilots == 0.
-extern "C" int correlate_bank_launch(
+template <class Sample>
+int launch_bank(
     const void* iq, const void* off, const void* table, const void* wrow,
     const void* start, const void* alpha, const void* remc, const void* shi,
     const void* slo, const void* bsz, void* out, int n_rows, int blk, int k,
@@ -130,11 +135,11 @@ extern "C" int correlate_bank_launch(
   const size_t smem = cusdr::uv_smem_bytes(blk);
   const dim3 grid(n_rows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CUSDR_LAUNCH(INTERP, PILOTS)                                        \
-  launch<INTERP, PILOTS>(grid, smem, s, iq, off, table, wrow, start, alpha, \
-                         remc, shi, slo, bsz, ptable, pstart, palpha, out,  \
-                         blk, k, table_len, ptable_len, pilot_rot,          \
-                         pilot2_rot, w1, w2)
+#define CUSDR_LAUNCH(INTERP, PILOTS)                                         \
+  launch<INTERP, PILOTS, Sample>(grid, smem, s, iq, off, table, wrow, start, \
+                                 alpha, remc, shi, slo, bsz, ptable, pstart, \
+                                 palpha, out, blk, k, table_len, ptable_len, \
+                                 pilot_rot, pilot2_rot, w1, w2)
   cudaError_t err;
   switch (n_pilots * 2 + (interp_taps ? 1 : 0)) {
     case 0: err = CUSDR_LAUNCH(false, 0); break;
@@ -147,4 +152,29 @@ extern "C" int correlate_bank_launch(
   }
 #undef CUSDR_LAUNCH
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+#define CUSDR_BANK_ARGS                                                       \
+    const void* iq, const void* off, const void* table, const void* wrow,     \
+    const void* start, const void* alpha, const void* remc, const void* shi,  \
+    const void* slo, const void* bsz, void* out, int n_rows, int blk, int k,  \
+    int64_t table_len, int interp_taps, const void* ptable,                   \
+    const void* pstart, const void* palpha, int64_t ptable_len,               \
+    int n_pilots, int pilot_rot, int pilot2_rot, float w1, float w2,          \
+    void* stream
+#define CUSDR_BANK_CALL                                                       \
+    iq, off, table, wrow, start, alpha, remc, shi, slo, bsz, out, n_rows,     \
+    blk, k, table_len, interp_taps, ptable, pstart, palpha, ptable_len,       \
+    n_pilots, pilot_rot, pilot2_rot, w1, w2, stream
+
+// An int8 record (interleaved I/Q bytes).
+extern "C" int correlate_bank_launch(CUSDR_BANK_ARGS) {
+  return launch_bank<char2>(CUSDR_BANK_CALL);
+}
+
+// An int16 record (interleaved I/Q 16-bit words).
+extern "C" int correlate_bank_launch_int16(CUSDR_BANK_ARGS) {
+  return launch_bank<short2>(CUSDR_BANK_CALL);
 }

@@ -11,6 +11,13 @@
 // sums over the block in a fixed order.  The kernels differ in where the
 // row's windows lie, in how the carrier is made and in what they do with
 // the sums.
+//
+// The row loop is a template on the sample type: `char2` for an int8 record
+// (cfg.data_type "schar") and `short2` for an int16 one, I and Q of a
+// sample side by side in one load either way.  Each component is converted
+// to f32 and everything after that is the same code, so an int16 record
+// that is an int8 one times a power of two gives sums exactly that many
+// times larger.
 
 #pragma once
 
@@ -95,7 +102,7 @@ inline size_t uv_smem_bytes(int blk) {
 
 // Correlator sums of one channel row, by the whole block.
 //
-//   x[n]   = I + jQ                       the row's int8 sample window
+//   x[n]   = I + jQ                       the row's int8 or int16 samples
 //   bb[n]  = x[n] * (cw[n] - j sw[n])     carrier wipe-off, n < n_valid
 //   tap(d) = w[n + d] + alpha * (w[n + d + 1] - w[n + d])   (kInterp)
 //          = w[n + d]                                        (nearest)
@@ -121,17 +128,17 @@ __host__ __device__ constexpr int sums_of(int pilots) {
 // ... below n_end, added to acc[sums_of(kPilots)].  The windows x, w, pw0,
 // pw1 hold sample n at index n - n_base (n_base = 0: the whole window;
 // superblock_staged.cu passes a chunk staged in shared memory); the carrier
-// is indexed by n.
-template <bool kInterp, int kPilots, class Carrier>
+// is indexed by n.  Sample: char2 or short2.
+template <bool kInterp, int kPilots, class Sample, class Carrier>
 __device__ __forceinline__ void accumulate_row(
-    const char2* __restrict__ x, const int8_t* __restrict__ w,
+    const Sample* __restrict__ x, const int8_t* __restrict__ w,
     const int8_t* __restrict__ pw0, const int8_t* __restrict__ pw1,
     float alpha, float palpha, int n_begin, int n_end, int k,
     const Carrier& carrier, float* __restrict__ acc, int n_base = 0) {
   const int8_t* pw[2] = {pw0, pw1};
   for (int n = n_begin + threadIdx.x; n < n_end; n += kThreads) {
     const int i = n - n_base;
-    const char2 s = x[i];
+    const Sample s = x[i];
     const float si = static_cast<float>(s.x);
     const float sq = static_cast<float>(s.y);
     float cw, sw;
@@ -215,9 +222,9 @@ __device__ __forceinline__ float output_sum(const float* tot, int j,
 // The three steps over a row's first n_valid samples.  `out_row` gets 8
 // floats without pilots (iE qE iP qP iL qL 0 0), 16 with (+ piE pqE piP pqP
 // piL pqL 0 0 0 0).
-template <bool kInterp, int kPilots, class Carrier>
+template <bool kInterp, int kPilots, class Sample, class Carrier>
 __device__ __forceinline__ void correlate_row(
-    const char2* __restrict__ x, const int8_t* __restrict__ w,
+    const Sample* __restrict__ x, const int8_t* __restrict__ w,
     const int8_t* __restrict__ pw0, const int8_t* __restrict__ pw1,
     float alpha, float palpha, int n_valid, int k, const Carrier& carrier,
     float* __restrict__ out_row, int pilot_rot, int pilot2_rot, float w1,

@@ -11,7 +11,12 @@
 //       remc / shi / slo, no pilot, pilot or dual pilot windows, both tap
 //       modes.  It is the per-epoch step of the eager loop on staged
 //       windows (fetch_in_kernel = False), the CPU's path and the plain
-//       version of superblock_staged.cu, which runs the card's.
+//       version of superblock_staged.cu, which runs the card's.  It takes
+//       int8 sample windows, or int16 ones through
+//       correlate_windows_launch_int16.
+//
+// The phase-ramp and table-carrier kernels take int8 windows only: they
+// are prototypes that no receiver path runs.
 //   correlate_windows_ramp_launch   replaces `make_correlate_kernel` of
 //       tools/perf_pallas.py: no pilot, interpolated taps, carrier from a
 //       per-sample phase remc + shi * floor(n / 256) + slo * (n mod 256)
@@ -21,8 +26,8 @@
 //       basis tables: cos = c0 * tc[n] - s0 * ts[n],
 //       sin = s0 * tc[n] + c0 * ts[n].
 //
-// Layout: siq [C, blk, 2] int8 (I and Q of a sample side by side, as the
-// record keeps them, so a sample is one 2-byte load); wt [C, win] int8 with
+// Layout: siq [C, blk, 2] int8 or int16 (I and Q of a sample side by side,
+// as the record keeps them, so a sample is one 2- or 4-byte load); wt [C, win] int8 with
 // win >= blk + 2k + 1 and tap E of sample 0 at column 0; pilot windows
 // [C, kPilots, win]; per-row scalars [C]; tc, ts [C, blk] f32.  blk need not
 // be a multiple of anything: there is no channel-block padding and no
@@ -81,9 +86,9 @@ __device__ __forceinline__ int valid_samples(int64_t bsz, int blk) {
   return bsz < blk ? static_cast<int>(bsz) : blk;
 }
 
-template <bool kInterp, int kPilots>
+template <bool kInterp, int kPilots, class Sample>
 __global__ void __launch_bounds__(kThreads)
-correlate_windows_kernel(const int8_t* __restrict__ siq,
+correlate_windows_kernel(const Sample* __restrict__ siq,
                          const int8_t* __restrict__ wt,
                          const int8_t* __restrict__ wp,
                          const float* __restrict__ alpha,
@@ -108,7 +113,7 @@ correlate_windows_kernel(const int8_t* __restrict__ siq,
     pal = palpha[c];
   }
   correlate_row<kInterp, kPilots>(
-      reinterpret_cast<const char2*>(siq) + c * blk, wt + c * win, pw0, pw1,
+      siq + c * blk, wt + c * win, pw0, pw1,
       alpha[c], pal, valid_samples(bsz[c], blk), k, carrier, out + c * kOut,
       pilot_rot, pilot2_rot, w1, w2);
 }
@@ -150,7 +155,7 @@ correlate_windows_table_kernel(const int8_t* __restrict__ siq,
       out + c * 8, 0, 0, 0.f, 0.f);
 }
 
-template <bool kInterp, int kPilots>
+template <bool kInterp, int kPilots, class Sample>
 cudaError_t launch_windows(int n_rows, cudaStream_t s, const void* siq,
                            const void* wt, const void* wp, const void* alpha,
                            const void* palpha, const void* remc,
@@ -158,9 +163,9 @@ cudaError_t launch_windows(int n_rows, cudaStream_t s, const void* siq,
                            void* out, int blk, int k, int64_t win,
                            int pilot_rot, int pilot2_rot, float w1,
                            float w2) {
-  correlate_windows_kernel<kInterp, kPilots>
+  correlate_windows_kernel<kInterp, kPilots, Sample>
       <<<n_rows, kThreads, uv_smem_bytes(blk), s>>>(
-          static_cast<const int8_t*>(siq), static_cast<const int8_t*>(wt),
+          static_cast<const Sample*>(siq), static_cast<const int8_t*>(wt),
           static_cast<const int8_t*>(wp), static_cast<const float*>(alpha),
           static_cast<const float*>(palpha), static_cast<const float*>(remc),
           static_cast<const float*>(shi), static_cast<const float*>(slo),
@@ -169,20 +174,20 @@ cudaError_t launch_windows(int n_rows, cudaStream_t s, const void* siq,
   return cudaGetLastError();
 }
 
-}  // namespace
-
 // wp and palpha are ignored (and may be null) when n_pilots == 0.
-extern "C" int correlate_windows_launch(
-    const void* siq, const void* wt, const void* wp, const void* alpha,
-    const void* palpha, const void* remc, const void* shi, const void* slo,
-    const void* bsz, void* out, int n_rows, int blk, int k, int64_t win,
-    int interp_taps, int n_pilots, int pilot_rot, int pilot2_rot, float w1,
-    float w2, void* stream) {
+template <class Sample>
+int launch_windows_of(const void* siq, const void* wt, const void* wp,
+                      const void* alpha, const void* palpha, const void* remc,
+                      const void* shi, const void* slo, const void* bsz,
+                      void* out, int n_rows, int blk, int k, int64_t win,
+                      int interp_taps, int n_pilots, int pilot_rot,
+                      int pilot2_rot, float w1, float w2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CUSDR_LAUNCH(INTERP, PILOTS)                                         \
-  launch_windows<INTERP, PILOTS>(n_rows, s, siq, wt, wp, alpha, palpha,      \
-                                 remc, shi, slo, bsz, out, blk, k, win,      \
-                                 pilot_rot, pilot2_rot, w1, w2)
+#define CUSDR_LAUNCH(INTERP, PILOTS)                                          \
+  launch_windows<INTERP, PILOTS, Sample>(n_rows, s, siq, wt, wp, alpha,       \
+                                         palpha, remc, shi, slo, bsz, out,    \
+                                         blk, k, win, pilot_rot, pilot2_rot,  \
+                                         w1, w2)
   cudaError_t err;
   switch (n_pilots * 2 + (interp_taps ? 1 : 0)) {
     case 0: err = CUSDR_LAUNCH(false, 0); break;
@@ -195,6 +200,28 @@ extern "C" int correlate_windows_launch(
   }
 #undef CUSDR_LAUNCH
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+#define CUSDR_WINDOWS_ARGS                                                    \
+    const void* siq, const void* wt, const void* wp, const void* alpha,       \
+    const void* palpha, const void* remc, const void* shi, const void* slo,   \
+    const void* bsz, void* out, int n_rows, int blk, int k, int64_t win,      \
+    int interp_taps, int n_pilots, int pilot_rot, int pilot2_rot, float w1,   \
+    float w2, void* stream
+#define CUSDR_WINDOWS_CALL                                                    \
+    siq, wt, wp, alpha, palpha, remc, shi, slo, bsz, out, n_rows, blk, k,     \
+    win, interp_taps, n_pilots, pilot_rot, pilot2_rot, w1, w2, stream
+
+// int8 sample windows.
+extern "C" int correlate_windows_launch(CUSDR_WINDOWS_ARGS) {
+  return launch_windows_of<char2>(CUSDR_WINDOWS_CALL);
+}
+
+// int16 sample windows.
+extern "C" int correlate_windows_launch_int16(CUSDR_WINDOWS_ARGS) {
+  return launch_windows_of<short2>(CUSDR_WINDOWS_CALL);
 }
 
 extern "C" int correlate_windows_ramp_launch(

@@ -53,8 +53,13 @@
 // this toolkit's `atanf` equals PyTorch's; a cluster adds the slices in
 // another order, which moves the sums by f32 rounding.
 //
-// No tensor cores and no TMA: the work is int8 loads and f32 FMAs on a 1-D
-// stream, 33-75 operations per sample, with no matrix product in it.  The
+// The record's sample type picks the instantiation: `track_superblock_launch`
+// reads int8 I/Q (char2), `track_superblock_launch_int16` int16 I/Q (short2);
+// the arithmetic after the conversion to f32 is the same.
+//
+// No tensor cores and no TMA: the work is int8 or int16 loads and f32 FMAs
+// on a 1-D stream, 33-75 operations per sample, with no matrix product in
+// it.  The
 // geometry, the closing and the output rows are superblock_common.cuh's,
 // shared with superblock_staged.cu.
 
@@ -68,7 +73,7 @@ namespace {
 
 using namespace cusdr;
 
-template <bool kInterp, int kPilots, bool kCluster>
+template <bool kInterp, int kPilots, bool kCluster, class Sample>
 __global__ void __launch_bounds__(kThreads)
 track_superblock_kernel(const SuperblockArgs a) {
   constexpr int kSums = sums_of(kPilots);
@@ -121,8 +126,8 @@ track_superblock_kernel(const SuperblockArgs a) {
     }
     const int n_valid =
         geo.blksize < 0 ? 0 : static_cast<int>(geo.blksize);
-    const char2* __restrict__ x =
-        reinterpret_cast<const char2*>(a.iq) + geo.off;
+    const Sample* __restrict__ x =
+        static_cast<const Sample*>(a.iq) + geo.off;
     const int8_t* __restrict__ w = table + geo.start;
     const int8_t* pw0 = nullptr;
     const int8_t* pw1 = nullptr;
@@ -197,11 +202,11 @@ track_superblock_kernel(const SuperblockArgs a) {
   }
 }
 
-template <bool kInterp, int kPilots>
+template <bool kInterp, int kPilots, class Sample>
 cudaError_t launch(const SuperblockArgs& a, int cluster, cudaStream_t s) {
   const size_t smem = uv_smem_bytes(a.blk);
   if (cluster <= 1) {
-    track_superblock_kernel<kInterp, kPilots, false>
+    track_superblock_kernel<kInterp, kPilots, false, Sample>
         <<<a.n_rows, kThreads, smem, s>>>(a);
     return cudaGetLastError();
   }
@@ -218,8 +223,29 @@ cudaError_t launch(const SuperblockArgs& a, int cluster, cudaStream_t s) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, track_superblock_kernel<kInterp, kPilots, true>, a);
+      &cfg, track_superblock_kernel<kInterp, kPilots, true, Sample>, a);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// `cluster` blocks per channel row (1, 2, 4 or 8); `args->ptable` is ignored
+// (and may be null) when n_pilots == 0.
+template <class Sample>
+int launch_superblock(const SuperblockArgs* args, int interp_taps,
+                      int n_pilots, int cluster, void* stream) {
+  if (cluster < 1 || cluster > 8 || (cluster & (cluster - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (n_pilots * 2 + (interp_taps ? 1 : 0)) {
+    case 0: err = launch<false, 0, Sample>(*args, cluster, s); break;
+    case 1: err = launch<true, 0, Sample>(*args, cluster, s); break;
+    case 2: err = launch<false, 1, Sample>(*args, cluster, s); break;
+    case 3: err = launch<true, 1, Sample>(*args, cluster, s); break;
+    case 4: err = launch<false, 2, Sample>(*args, cluster, s); break;
+    case 5: err = launch<true, 2, Sample>(*args, cluster, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -229,23 +255,18 @@ extern "C" int track_superblock_args_size() {
   return static_cast<int>(sizeof(SuperblockArgs));
 }
 
-// `cluster` blocks per channel row (1, 2, 4 or 8); `args->ptable` is ignored
-// (and may be null) when n_pilots == 0.
+// An int8 record.
 extern "C" int track_superblock_launch(const SuperblockArgs* args,
                                        int interp_taps, int n_pilots,
                                        int cluster, void* stream) {
-  if (cluster < 1 || cluster > 8 || (cluster & (cluster - 1)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (n_pilots * 2 + (interp_taps ? 1 : 0)) {
-    case 0: err = launch<false, 0>(*args, cluster, s); break;
-    case 1: err = launch<true, 0>(*args, cluster, s); break;
-    case 2: err = launch<false, 1>(*args, cluster, s); break;
-    case 3: err = launch<true, 1>(*args, cluster, s); break;
-    case 4: err = launch<false, 2>(*args, cluster, s); break;
-    case 5: err = launch<true, 2>(*args, cluster, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  return launch_superblock<char2>(args, interp_taps, n_pilots, cluster,
+                                  stream);
+}
+
+// An int16 record.
+extern "C" int track_superblock_launch_int16(const SuperblockArgs* args,
+                                             int interp_taps, int n_pilots,
+                                             int cluster, void* stream) {
+  return launch_superblock<short2>(args, interp_taps, n_pilots, cluster,
+                                   stream);
 }

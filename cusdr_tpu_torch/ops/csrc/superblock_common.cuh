@@ -16,7 +16,8 @@
 // caller in double (or rounded to f32 where the eager loop's tensors are
 // f32) and used as given.
 struct SuperblockArgs {
-  const int8_t* iq;            // [2 S] interleaved I/Q record
+  const void* iq;              // [2 S] interleaved I/Q record: int8, or
+                               // int16 in the `_int16` instantiations
   const int8_t* table;         // [R, table_len] replica tables
   const int8_t* ptable;        // [R, n_pilots, ptable_len] or null
   const double* state_in;      // [12, C] ChannelState's f64 fields

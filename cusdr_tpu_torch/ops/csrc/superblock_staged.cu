@@ -61,8 +61,13 @@
 //     totals through distributed shared memory, double buffered by epoch
 //     parity, as in superblock.cu.
 //
-// What bounds it: per row and epoch 2 bytes per sample and 1 per sample and
-// replica bank come from device memory (the rows of a bank read nearly the
+// The record's sample type picks the instantiation:
+// `track_superblock_staged_launch` stages int8 I/Q (char2, 2 bytes a
+// sample), `track_superblock_staged_launch_int16` int16 I/Q (short2, 4
+// bytes); the stage plan's sample buffers are sized for it.
+//
+// What bounds it: per row and epoch 2 bytes per sample (4 of an int16
+// record) and 1 per sample and replica bank come from device memory (the rows of a bank read nearly the
 // same stretch of the record, which the L2 cache holds) against 33-75 f32
 // operations per sample, and the serial closing (a few microseconds of
 // dependent f64 arithmetic on one thread) per epoch, under which the next
@@ -208,7 +213,7 @@ __device__ Window ahead_window(const SuperblockArgs& a, const RowState& s,
 // epoch q / per_rank; its samples are [n0, n1) of the window, clipped to
 // the window's blk samples.  Bit s of `tailed` is set while stage s holds
 // bytes the producer stored itself.
-template <int kPilots>
+template <int kPilots, class Sample>
 __device__ void issue_chunk(const SuperblockArgs& a, const StagePlan& p,
                             int rank, int64_t wrow, int q, const Window& win,
                             uint8_t* ring, StageMeta* meta, uint64_t* full,
@@ -223,11 +228,12 @@ __device__ void issue_chunk(const SuperblockArgs& a, const StagePlan& p,
   const int8_t* src[kBufs];
   uint8_t* dst[kBufs];
   int64_t x0[kBufs], x1[kBufs], size[kBufs];
-  src[0] = a.iq;
+  constexpr int64_t kSampleBytes = sizeof(Sample);
+  src[0] = static_cast<const int8_t*>(a.iq);
   dst[0] = stage;
-  size[0] = 2 * a.n_samples;
-  x0[0] = 2 * (win.off_lo + n0);
-  x1[0] = 2 * (win.off_hi + n1);
+  size[0] = kSampleBytes * a.n_samples;
+  x0[0] = kSampleBytes * (win.off_lo + n0);
+  x1[0] = kSampleBytes * (win.off_hi + n1);
   for (int b = 0; b <= kPilots; ++b) {
     const bool data = b == 0;
     const int64_t row = data ? wrow * a.table_len
@@ -274,7 +280,7 @@ __device__ void issue_chunk(const SuperblockArgs& a, const StagePlan& p,
 // `limit` that belong to epoch `known` (geometry `g`, state `s`) or to one
 // of the next two (predicted), each once its stage is free.  Returns the
 // new `issued`.
-template <int kPilots>
+template <int kPilots, class Sample>
 __device__ int produce(const SuperblockArgs& a, const StagePlan& p, int rank,
                        int64_t wrow, int known, const RowState& s,
                        const Geometry& g, int issued, int limit,
@@ -288,17 +294,18 @@ __device__ int produce(const SuperblockArgs& a, const StagePlan& p, int rank,
                (issued / p.n_stages - 1) & 1);
     const Window w =
         ahead_window<kPilots>(a, s, g, issued / p.per_rank - known);
-    issue_chunk<kPilots>(a, p, rank, wrow, issued, w, ring, meta, full,
-                         tailed);
+    issue_chunk<kPilots, Sample>(a, p, rank, wrow, issued, w, ring, meta,
+                                 full, tailed);
   }
   return issued;
 }
 
-template <bool kInterp, int kPilots, bool kCluster>
+template <bool kInterp, int kPilots, bool kCluster, class Sample>
 __global__ void __launch_bounds__(kThreads)
 track_superblock_staged_kernel(const SuperblockArgs a, const StagePlan p,
                                int* __restrict__ slow) {
   constexpr int kSums = sums_of(kPilots);
+  constexpr int64_t kSampleBytes = sizeof(Sample);
   extern __shared__ __align__(128) uint8_t dyn[];
   __shared__ float part[kWarps][kSums];
   __shared__ float tot[2][kSums];     // by epoch parity (see the cluster)
@@ -346,8 +353,9 @@ track_superblock_staged_kernel(const SuperblockArgs a, const StagePlan p,
   }
   __syncthreads();
   if (threadIdx.x == kProducer)
-    issued = produce<kPilots>(a, p, rank, wrow, 0, st, geo, 0, p.n_stages,
-                              ring, meta, full, empty, tailed);
+    issued = produce<kPilots, Sample>(a, p, rank, wrow, 0, st, geo, 0,
+                                      p.n_stages, ring, meta, full, empty,
+                                      tailed);
 
   int q = 0;              // chunks consumed
   for (int e = 0; e < a.n_epochs; ++e) {
@@ -373,7 +381,7 @@ track_superblock_staged_kernel(const SuperblockArgs a, const StagePlan p,
     const float alpha = geo.alpha;
     const float palpha = geo.palpha;
     // the slow path's windows in device memory, as superblock.cu reads them
-    const char2* __restrict__ x = reinterpret_cast<const char2*>(a.iq) + off;
+    const Sample* __restrict__ x = static_cast<const Sample*>(a.iq) + off;
     const int8_t* __restrict__ w = table + start;
     const int8_t* pw0 = nullptr;
     const int8_t* pw1 = nullptr;
@@ -399,9 +407,10 @@ track_superblock_staged_kernel(const SuperblockArgs a, const StagePlan p,
         const StageMeta& m = meta[s];
         const int64_t span = n1 - n0 + 2 * a.k + 1;
         int64_t need[kBuffers];
-        need[0] = 2 * (off + n0);
+        need[0] = kSampleBytes * (off + n0);
         need[1] = wrow * a.table_len + start + n0;
-        bool held = need[0] >= m.x0[0] && 2 * (off + n1) <= m.x1[0] &&
+        bool held = need[0] >= m.x0[0] &&
+                    kSampleBytes * (off + n1) <= m.x1[0] &&
                     need[1] >= m.x0[1] && need[1] + span <= m.x1[1];
 #pragma unroll
         for (int b = 0; b < kPilots; ++b) {
@@ -411,8 +420,8 @@ track_superblock_staged_kernel(const SuperblockArgs a, const StagePlan p,
         }
         if (held) {
           const uint8_t* stage = ring + static_cast<int64_t>(s) * stage_bytes;
-          const char2* xs =
-              reinterpret_cast<const char2*>(stage + (need[0] - m.lo[0]));
+          const Sample* xs =
+              reinterpret_cast<const Sample*>(stage + (need[0] - m.lo[0]));
           const int8_t* ws = reinterpret_cast<const int8_t*>(
               stage + p.samp_bytes + (need[1] - m.lo[1]));
           const int8_t* ps[2] = {nullptr, nullptr};
@@ -434,9 +443,9 @@ track_superblock_staged_kernel(const SuperblockArgs a, const StagePlan p,
       if ((threadIdx.x & 31) == 0) bar_arrive(&empty[s]);
       // refill the stage freed one chunk ago (its other warps are done)
       if (threadIdx.x == kProducer)
-        issued = produce<kPilots>(a, p, rank, wrow, e, st, geo, issued,
-                                  q + p.n_stages, ring, meta, full, empty,
-                                  tailed);
+        issued = produce<kPilots, Sample>(a, p, rank, wrow, e, st, geo,
+                                          issued, q + p.n_stages, ring, meta,
+                                          full, empty, tailed);
     }
 
     float* mine = tot[e & 1];
@@ -479,9 +488,9 @@ track_superblock_staged_kernel(const SuperblockArgs a, const StagePlan p,
     } else if (threadIdx.x == kProducer) {
       // every stage is free: while thread 0 closes, fill the ring with the
       // next epoch's chunks and those of the one after it
-      issued = produce<kPilots>(a, p, rank, wrow, e, snap, snap_geo, issued,
-                                q + p.n_stages, ring, meta, full, empty,
-                                tailed);
+      issued = produce<kPilots, Sample>(a, p, rank, wrow, e, snap, snap_geo,
+                                        issued, q + p.n_stages, ring, meta,
+                                        full, empty, tailed);
     }
     __syncthreads();
   }
@@ -507,15 +516,16 @@ track_superblock_staged_kernel(const SuperblockArgs a, const StagePlan p,
   }
 }
 
-template <bool kInterp, int kPilots>
+template <bool kInterp, int kPilots, class Sample>
 cudaError_t launch(const SuperblockArgs& a, const StagePlan& p, int cluster,
                    int* slow, cudaStream_t s) {
   const size_t smem =
       p.uv_bytes + static_cast<size_t>(p.n_stages) *
                        (p.samp_bytes + (1 + kPilots) * p.rep_bytes);
-  auto kernel = cluster <= 1
-                    ? track_superblock_staged_kernel<kInterp, kPilots, false>
-                    : track_superblock_staged_kernel<kInterp, kPilots, true>;
+  auto kernel =
+      cluster <= 1
+          ? track_superblock_staged_kernel<kInterp, kPilots, false, Sample>
+          : track_superblock_staged_kernel<kInterp, kPilots, true, Sample>;
   // above 48 KB only after opting in
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -541,21 +551,16 @@ cudaError_t launch(const SuperblockArgs& a, const StagePlan& p, int cluster,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-}  // namespace
-
-// The size of SuperblockArgs, for the caller to hold its mirror to.
-extern "C" int track_superblock_staged_args_size() {
-  return static_cast<int>(sizeof(SuperblockArgs));
-}
-
 // `cluster` blocks per channel row (1, 2, 4 or 8); the stage plan as
-// `stage_plan` of ops/correlator.py makes it; `slow` [C] int32 gets the
-// epochs (summed over a row's blocks) in which a chunk was read from device
-// memory.  `args->ptable` is ignored (and may be null) when n_pilots == 0.
-extern "C" int track_superblock_staged_launch(
-    const SuperblockArgs* args, int interp_taps, int n_pilots, int cluster,
-    int chunk, int n_stages, int per_rank, int samp_bytes, int rep_bytes,
-    int uv_bytes, int* slow, void* stream) {
+// `stage_plan` of ops/correlator.py makes it for this sample type; `slow` [C]
+// int32 gets the epochs (summed over a row's blocks) in which a chunk was
+// read from device memory.  `args->ptable` is ignored (and may be null) when
+// n_pilots == 0.
+template <class Sample>
+int launch_staged(const SuperblockArgs* args, int interp_taps, int n_pilots,
+                  int cluster, int chunk, int n_stages, int per_rank,
+                  int samp_bytes, int rep_bytes, int uv_bytes, int* slow,
+                  void* stream) {
   // one block per row sums each thread's samples in the per-epoch kernels'
   // order only with chunks of whole block strides; a cluster's slices are
   // whole carrier steps
@@ -570,13 +575,40 @@ extern "C" int track_superblock_staged_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (n_pilots * 2 + (interp_taps ? 1 : 0)) {
-    case 0: err = launch<false, 0>(*args, p, cluster, slow, s); break;
-    case 1: err = launch<true, 0>(*args, p, cluster, slow, s); break;
-    case 2: err = launch<false, 1>(*args, p, cluster, slow, s); break;
-    case 3: err = launch<true, 1>(*args, p, cluster, slow, s); break;
-    case 4: err = launch<false, 2>(*args, p, cluster, slow, s); break;
-    case 5: err = launch<true, 2>(*args, p, cluster, slow, s); break;
+    case 0: err = launch<false, 0, Sample>(*args, p, cluster, slow, s); break;
+    case 1: err = launch<true, 0, Sample>(*args, p, cluster, slow, s); break;
+    case 2: err = launch<false, 1, Sample>(*args, p, cluster, slow, s); break;
+    case 3: err = launch<true, 1, Sample>(*args, p, cluster, slow, s); break;
+    case 4: err = launch<false, 2, Sample>(*args, p, cluster, slow, s); break;
+    case 5: err = launch<true, 2, Sample>(*args, p, cluster, slow, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// The size of SuperblockArgs, for the caller to hold its mirror to.
+extern "C" int track_superblock_staged_args_size() {
+  return static_cast<int>(sizeof(SuperblockArgs));
+}
+
+// An int8 record.
+extern "C" int track_superblock_staged_launch(
+    const SuperblockArgs* args, int interp_taps, int n_pilots, int cluster,
+    int chunk, int n_stages, int per_rank, int samp_bytes, int rep_bytes,
+    int uv_bytes, int* slow, void* stream) {
+  return launch_staged<char2>(args, interp_taps, n_pilots, cluster, chunk,
+                              n_stages, per_rank, samp_bytes, rep_bytes,
+                              uv_bytes, slow, stream);
+}
+
+// An int16 record.
+extern "C" int track_superblock_staged_launch_int16(
+    const SuperblockArgs* args, int interp_taps, int n_pilots, int cluster,
+    int chunk, int n_stages, int per_rank, int samp_bytes, int rep_bytes,
+    int uv_bytes, int* slow, void* stream) {
+  return launch_staged<short2>(args, interp_taps, n_pilots, cluster, chunk,
+                               n_stages, per_rank, samp_bytes, rep_bytes,
+                               uv_bytes, slow, stream);
 }

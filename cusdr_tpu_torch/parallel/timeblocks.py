@@ -40,8 +40,9 @@ import torch
 from ..signals.defs import SignalDef
 from ..tracking.engine import (ChannelState, TrackOutputs, TrackParams,
                                TrackResults, build_replica_tables,
-                               init_channel_state, make_track_params,
-                               track_superblock, track_superblock_epochs)
+                               code_dopplers, init_channel_state,
+                               make_track_params, track_superblock,
+                               track_superblock_epochs)
 
 # correlator outputs that flip with a block's Costas lock sign
 _SIGNED = {"i_e", "q_e", "i_p", "q_p", "i_l", "q_l", "pilot_ip", "pilot_qp"}
@@ -79,7 +80,8 @@ def _track_blocks_flat(samples_iq, tables, ptables, states: ChannelState,
     windows straight from the record, the replica tables are shared by row
     modulo, and no per-block sample buffers are made.
 
-    samples_iq: [2S] int8 full record on the device; states leaves
+    samples_iq: [2S] int8 or int16 full record on the device; states
+    leaves
     [B, C].  Returns (states [B, C], outputs [B, n_epochs, C])."""
     if states.abs_sample.shape[0] != n_blocks:
         raise ValueError(f"states hold {states.abs_sample.shape[0]} blocks, "
@@ -97,7 +99,7 @@ def _track_blocks(samples_blocks, block_starts, block_ends, tables, ptables,
     epoch's windows into shared memory; on the CPU the eager loop, which
     gathers them before its per-epoch kernel.
 
-    samples_blocks: [B, 2·S_blk] int8 interleaved block buffers;
+    samples_blocks: [B, 2·S_blk] int8 or int16 interleaved block buffers;
     block_starts / block_ends: [B] int64 absolute sample range of each
     buffer; states leaves [B, C].  The buffers are read as one
     pseudo-record with block b at sample b·S_blk: ``abs_sample`` is
@@ -127,7 +129,7 @@ def predict_block_states(channels: Sequence, cfg, sig: SignalDef,
     [B, C] as a numpy int64 array)."""
     fs = cfg.sampling_freq
     code_len = sig.code_length_chips
-    dopplers = (np.asarray([ch[1] for ch in channels]) - cfg.if_freq)
+    dopplers = code_dopplers(cfg, sig, channels)
     code_freqs = sig.chip_rate_hz * (1.0 + dopplers / sig.carrier_freq_hz)
     phase0 = np.asarray([ch[2] for ch in channels], np.float64)
 
@@ -176,14 +178,7 @@ def track_time_parallel(cfg, sig: SignalDef, samples_iq: np.ndarray,
     eager epoch loop, the superblock kernels' plain version, in their place
     on the card too (a yardstick for the kernels in the same process)."""
     device = torch.device(device)
-    if sig.fdma:
-        raise NotImplementedError(
-            "FDMA (GLONASS) tracking is not ported yet (ROADMAP.md Queue A "
-            "item 9)")
     samples_iq = np.ascontiguousarray(np.asarray(samples_iq))
-    if samples_iq.dtype != np.int8:
-        raise NotImplementedError(
-            "int16 records are not ported yet (ROADMAP.md Queue A item 9)")
     params = dataclasses.replace(make_track_params(cfg, sig),
                                  fetch_in_kernel=fetch_in_kernel)
     spc = cfg.samples_per_code
@@ -198,8 +193,7 @@ def track_time_parallel(cfg, sig: SignalDef, samples_iq: np.ndarray,
 
     states0, starts = predict_block_states(channels, cfg, sig, n_blocks,
                                            epochs_per_block, device)
-    dopplers0 = (np.asarray([ch[1] for ch in channels], np.float64)
-                 - cfg.if_freq)
+    dopplers0 = code_dopplers(cfg, sig, channels)
     ctabs, ptabs = build_replica_tables(cfg, sig, params, channels,
                                         dopplers0)
     tables = torch.from_numpy(ctabs).to(device)
@@ -218,7 +212,7 @@ def track_time_parallel(cfg, sig: SignalDef, samples_iq: np.ndarray,
         # one) and a tail margin
         total = len(samples_iq) // 2
         blk_len = (epochs_per_block + 4) * spc + params.blk + 256
-        sb = np.zeros((n_blocks, 2 * blk_len), np.int8)
+        sb = np.zeros((n_blocks, 2 * blk_len), samples_iq.dtype)
         sb_start = np.zeros(n_blocks, np.int64)
         sb_end = np.zeros(n_blocks, np.int64)
         for b in range(n_blocks):

@@ -274,8 +274,10 @@ class Receiver:
 
     def run(self, samples_iq: np.ndarray,
             n_epochs: Optional[int] = None) -> ReceiverResults:
-        """samples_iq: interleaved int8 I/Q or, for cfg.file_type == 1, a
-        real sample stream."""
+        """samples_iq: interleaved I/Q, int8 or int16 (cfg.data_type), or,
+        for cfg.file_type == 1, a real sample stream of either type,
+        processed as I + j·0 (the carrier mix selects the +IF signal; its
+        image at -IF lies outside the correlator's band)."""
         cfg = self.cfg
         timings = {}
         t0 = time.perf_counter()

@@ -49,9 +49,10 @@ _SUPERBLOCK_KERNELS = {True: "track_superblock_kernel",
 def make_bank(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
               seed: int = 0):
     """A channel bank at ``cfg``'s width on random int8 samples:
-    ``cfg.num_channels`` channels spread over the Doppler band, as
-    ``n_blocks`` time blocks of ``n_epochs`` (B·C rows sharing C table
-    rows).  Returns (iq, tables, ptables, state, params)."""
+    ``cfg.num_channels`` channels spread over the Doppler band (an FDMA
+    signal's on their frequency channels' carriers), as ``n_blocks`` time
+    blocks of ``n_epochs`` (B·C rows sharing C table rows).  Returns (iq,
+    tables, ptables, state, params)."""
     sig = get_signal(cfg.signal)
     params = engine.make_track_params(cfg, sig)
     n_ch = cfg.num_channels
@@ -61,9 +62,10 @@ def make_bank(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
     iq = torch.from_numpy(
         rng.integers(-16, 17, 2 * n_samp).astype(np.int8)).to(device)
     prns = list(cfg.acq_satellite_list)[:n_ch]
-    channels = [(prn, cfg.if_freq + 500.0 * (j - n_ch // 2), 149 * j)
-                for j, prn in enumerate(prns)]
-    dops = [c[1] - cfg.if_freq for c in channels]
+    fdma = sig.fdma_spacing_hz if sig.fdma else 0.0
+    channels = [(prn, cfg.if_freq + fdma * prn + 500.0 * (j - n_ch // 2),
+                 149 * j) for j, prn in enumerate(prns)]
+    dops = engine.code_dopplers(cfg, sig, channels)
     ctabs, ptabs = engine.build_replica_tables(cfg, sig, params, channels,
                                                dops)
     tables = torch.from_numpy(ctabs).to(device)

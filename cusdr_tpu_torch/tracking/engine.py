@@ -17,13 +17,16 @@ late, so the host waits on the device once per superblock.
 
 Covered: the fast sliced-replica path (``fast_code``) for data-only and
 data+pilot signals, including the long pilot (L2C CL, ``pilot_period_mod``)
-and the B1C WB QMBOC dual pilot bank, both tap modes (``interp_taps``),
-int8 records; windows fetched in the kernel (``fetch_in_kernel``, the
-default) or staged before it; a scalar or per-row record end, so that one
-flat bank can hold rows of several time blocks (parallel/timeblocks.py).
-The exact per-epoch gather path (correlator spacing under half a sample)
-and int16 records raise ``NotImplementedError`` (ROADMAP.md, Queue A
-item 9).
+and the B1C WB QMBOC dual pilot bank, FDMA channels (GLONASS: each
+channel's carrier sits ``fdma_spacing_hz · k`` off the IF, and only the
+Doppler left after that offset aids its code rate), both tap modes
+(``interp_taps``), int8 or int16 records (``cfg.data_type``; the kernels
+are instantiated for both); windows fetched in the kernel
+(``fetch_in_kernel``, the default) or staged before it; a scalar or per-row
+record end, so that one flat bank can hold rows of several time blocks
+(parallel/timeblocks.py).  The exact per-epoch gather path (correlator
+spacing under half a sample) raises ``NotImplementedError`` (ROADMAP.md,
+Queue A item 3d).
 """
 
 from __future__ import annotations
@@ -330,7 +333,8 @@ def track_superblock(iq: torch.Tensor, sb_start: int, tables: torch.Tensor,
                      n_epochs: int, end_sample=None):
     """Track all channels through ``n_epochs`` code periods.
 
-    iq: [2S] int8 interleaved I/Q superblock on the tracking device;
+    iq: [2S] int8 or int16 interleaved I/Q superblock on the tracking
+    device;
     sb_start: absolute sample index of iq[0]; tables / pilot_tables: int8
     replica tables from ``build_replica_tables`` (pilot_tables None
     without a pilot bank); end_sample: absolute end of the record
@@ -367,9 +371,9 @@ def _check_superblock(iq, sb_start, pilot_tables, params, end_sample):
     ``end_sample`` with its default filled in."""
     if params.has_pilot and pilot_tables is None:
         raise ValueError("a pilot bank needs pilot_tables")
-    if iq.dtype != torch.int8:
-        raise NotImplementedError(
-            "int16 records are not ported yet (ROADMAP.md Queue A item 9)")
+    if iq.dtype not in (torch.int8, torch.int16):
+        raise ValueError(f"the record must be int8 or int16 I/Q, got "
+                         f"{iq.dtype}")
     if end_sample is None:
         end_sample = sb_start + iq.shape[0] // 2
     return end_sample
@@ -519,7 +523,7 @@ def make_track_params(cfg, sig: SignalDef) -> TrackParams:
         raise NotImplementedError(
             f"{sig.name}: correlator spacing under half a sample needs the "
             "per-epoch gather path, not ported yet (ROADMAP.md Queue A "
-            "item 9)")
+            "item 3d)")
     has_pilot = cfg.pilot_trk_flag > 0 and sig.pilot_code is not None
     # data/pilot combining weights: the squared acquisition amplitude
     # weights (B1C 11/40 + 29/40), else 50/50
@@ -563,6 +567,20 @@ def make_track_params(cfg, sig: SignalDef) -> TrackParams:
         pilot_w1=float(pilot_w1), pilot_w2=float(pilot_w2))
 
 
+def code_dopplers(cfg, sig: SignalDef, channels: Sequence) -> np.ndarray:
+    """Each channel's Doppler [Hz], f64: its acquired carrier less the IF
+    and, for an FDMA signal, less its frequency channel's offset
+    ``fdma_spacing_hz · k`` (k = the channel's prn).  It aids the code rate
+    (tables and the code NCO's centre); the carrier NCO keeps the full
+    acquired carrier."""
+    carr = np.asarray([ch[1] for ch in channels], np.float64)
+    offsets = np.zeros(len(channels))
+    if sig.fdma:
+        offsets = np.asarray([sig.fdma_spacing_hz * ch[0]
+                              for ch in channels])
+    return carr - cfg.if_freq - offsets
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -581,9 +599,9 @@ def _to_host(outs: TrackOutputs, device: torch.device):
 def stage_superblock(samples_iq: np.ndarray, sb_start: int,
                      buf_len: int) -> np.ndarray:
     """A superblock's staging buffer: ``buf_len`` samples of the
-    interleaved int8 record from sample ``sb_start``, zeros past the
-    record's end."""
-    buf = np.zeros(2 * buf_len, np.int8)
+    interleaved record (int8 or int16, kept) from sample ``sb_start``,
+    zeros past the record's end."""
+    buf = np.zeros(2 * buf_len, samples_iq.dtype)
     lo, hi = sb_start, min(sb_start + buf_len, len(samples_iq) // 2)
     buf[:2 * (hi - lo)] = samples_iq[2 * lo:2 * hi]
     return buf
@@ -594,21 +612,15 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
     """Host loop: stage superblocks on ``device``, run the engine,
     collect results.
 
-    samples_iq: int8 interleaved I/Q for the whole record
+    samples_iq: int8 or int16 interleaved I/Q for the whole record
     channels: [(prn, acquired_carr_freq, code_phase_samples
     [, pilot_period])]; the optional 4th element seeds the long pilot's
-    period counter (``init_channel_state``)
+    period counter (``init_channel_state``).  For an FDMA signal the prn is
+    the frequency channel k and the carrier includes its offset.
     """
     device = torch.device(device)
     params = make_track_params(cfg, sig)
-    if sig.fdma:
-        raise NotImplementedError(
-            "FDMA (GLONASS) tracking is not ported yet (ROADMAP.md Queue A "
-            "item 9)")
     samples_iq = np.ascontiguousarray(np.asarray(samples_iq))
-    if samples_iq.dtype != np.int8:
-        raise NotImplementedError(
-            "int16 records are not ported yet (ROADMAP.md Queue A item 9)")
     spc = cfg.samples_per_code
     total_samples = len(samples_iq) // 2
     max_phase = max(ch[2] for ch in channels)
@@ -618,8 +630,7 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
         n_epochs, max(int(cfg.superblock_ms / sig.code_period_ms), 1))
 
     # Doppler-aided code rates (tables + state init)
-    dopplers0 = (np.asarray([ch[1] for ch in channels], np.float64)
-                 - cfg.if_freq)
+    dopplers0 = code_dopplers(cfg, sig, channels)
     ctabs, ptabs = build_replica_tables(cfg, sig, params, channels,
                                         dopplers0)
     tables = torch.from_numpy(ctabs).to(device)

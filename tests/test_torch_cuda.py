@@ -6,7 +6,14 @@ fetched or staged into shared memory) against their plain version, the
 eager epoch loop, at the gps_l1ca, gal_e5a and bds_b1c WB shapes (the staged
 one also at gps_l2c CL's); and ``track_superblock`` on the card against the
 CPU (gps_l1ca, gal_e5a with its pilot bank, the flat 96-row time-parallel
-bank, the per-block path).
+bank, the per-block path).  The int16 instantiations of the four kernels
+on the receiver's path (``correlate_bank``, ``correlate_windows`` and the
+two superblock kernels) against their plain versions, and on an int16
+record that is an int8 one times 64 against the int8 instantiations: sums
+exactly 64 times, everything else equal.  A glo_l1 bank at the preset's 12
+Msps (FDMA carriers up to ±3.94 MHz) through both superblock kernels
+against the eager loop, and the circular-shift acquisition with the CL
+period search on the card against the CPU.
 
 Every case needs a CUDA card and skips without one.  The file imports no
 jax, so it also runs where jax is absent:
@@ -642,3 +649,155 @@ def test_per_block_path_is_one_staged_launch_per_pass(cuda):
     assert LAUNCHES == before
     assert res.i_p.shape == (n_ch, n_blocks * epb)
     assert np.isfinite(res.i_p).all() and (res.blksize > 0).all()
+
+
+def _int16(iq):
+    """The record as int16 samples 64 times the int8 ones: every sum of the
+    kernels scales by 64 exactly (a power of two) and the loops not at
+    all."""
+    return iq.to(torch.int16) * 64
+
+
+_SUMS = ("i_e", "q_e", "i_p", "q_p", "i_l", "q_l", "pilot_ip", "pilot_qp")
+
+
+def _assert_int16_is_int8_times_64(got, want8):
+    for g_all, w_all in zip(got, want8):
+        for name, g, w in zip(g_all._fields, g_all, w_all):
+            assert torch.equal(g, 64 * w if name in _SUMS else w), name
+
+
+@pytest.mark.parametrize("interp_taps", [True, False])
+@pytest.mark.parametrize("variant,n_ch,blk,k", [
+    ("correlate_bank", 12, 18008, 9),
+    ("correlate_bank_pilot", 12, 18008, 1),
+    ("correlate_bank_dual_pilot", 15, 180008, 1),
+    ("correlate_windows", 12, 18008, 9),
+    ("correlate_windows_pilot", 12, 72008, 5),
+    ("correlate_windows_dual_pilot", 15, 180008, 1),
+])
+def test_int16_kernels_match_plain_version(cuda, variant, n_ch, blk, k,
+                                           interp_taps):
+    """The int16 instantiation against the plain version on the int16
+    record, and against the int8 instantiation on the int8 record: 64
+    times its sums, to the bit."""
+    args = list(_bank_args(cuda, n_ch=n_ch, blk=blk, k=k, n_samp=4 * blk))
+    n_pilots = 2 if "dual" in variant else 1 if "pilot" in variant else 0
+    pilot = _pilot_args(cuda, n_ch, blk, k, n_pilots == 2) if n_pilots \
+        else {}
+    rot = {n: v for n, v in pilot.items() if n.startswith("pilot_")}
+
+    def call(a, plain=False):
+        if variant.startswith("correlate_bank"):
+            fn = correlate_bank_plain if plain else correlate_bank
+            return fn(*a, k=k, blk=blk, interp_taps=interp_taps, **pilot)
+        siq, wt, wp = corr.stage_windows(*a[:5], k=k, blk=blk,
+                                         ptable=pilot.get("ptable"),
+                                         pstart=pilot.get("pstart"))
+        fn = corr.correlate_windows_plain if plain \
+            else corr.correlate_windows
+        return fn(siq, wt, *a[5:], k=k, interp_taps=interp_taps, wp=wp,
+                  palpha=pilot.get("palpha"), **rot)
+
+    args16 = [_int16(args[0])] + args[1:]
+    before = dict(LAUNCHES)
+    got = call(args16)
+    torch.cuda.synchronize()
+    before[f"{variant}[int16]"] += 1
+    assert LAUNCHES == before
+    _close(got, call(args16, plain=True), 16 if n_pilots else 8)
+    assert torch.equal(got, 64 * call(args))
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("signal,over,n_epochs", [
+    ("gps_l1ca", {}, 40),                          # 12 x 18 008, k = 9
+    ("gal_e5a", {}, 40),                           # pilot
+    ("bds_b1c", dict(pilot_trk_flag=2), 12),       # dual pilot
+])
+def test_int16_superblock_kernels_equal_int8_times_64(cuda, staged, signal,
+                                                      over, n_epochs):
+    """One launch of the int16 instantiation (the wrapper's cluster size):
+    the int8 run's states and 64 times its sums; with one block per row
+    the eager loop on the int16 record, bit for bit."""
+    cfg = get_config(signal, **over)
+    iq, tables, ptables, state, params = make_bank(cfg, cuda, 1, n_epochs)
+    if staged:
+        params = _staged(params)
+    n_rows = state.abs_sample.shape[0]
+    end = torch.full((n_rows,), iq.shape[0] // 2, device=cuda)
+    n_pilots = 0 if ptables is None else ptables.dim() - 1
+    name = (corr.STAGED_SUPERBLOCK_VARIANTS if staged
+            else corr.SUPERBLOCK_VARIANTS)[n_pilots]
+    iq16 = _int16(iq)
+    rest = (tables, ptables, state, params, n_epochs, end)
+    before = dict(LAUNCHES)
+    got = engine.track_superblock(iq16, 0, *rest)
+    torch.cuda.synchronize()
+    before[f"{name}[int16]"] += 1
+    assert LAUNCHES == before
+    _assert_int16_is_int8_times_64(got, engine.track_superblock(iq, 0,
+                                                                *rest))
+    bank = corr.track_superblock_staged_bank if staged \
+        else corr.track_superblock_bank
+    res = bank(iq16, 0, tables, ptables, *engine.pack_state(state), end,
+               n_epochs, params, up_margin=engine.UP_MARGIN, cluster=1)
+    torch.cuda.synchronize()
+    _assert_tracks_close(engine._finish_bank(engine.unpack_state(*res[0]),
+                                             res[1]),
+                         engine.track_superblock_epochs(iq16, 0, *rest),
+                         exact=True)
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("interp_taps", [True, False])
+def test_fdma_bank_superblock_matches_eager_loop(cuda, staged, interp_taps):
+    """glo_l1 at the preset's 12 Msps and IF 0: 12 rows on frequency
+    channels -7..4, whose carriers reach ±3.94 MHz (0.33 cycles a sample).
+    One block per row gives the eager loop's bits; with the wrapper's
+    cluster the integer fields are equal and the first epoch's sums within
+    the kernels' tolerance."""
+    cfg = get_config("glo_l1", interp_taps=interp_taps)
+    iq, tables, ptables, state, params = make_bank(cfg, cuda, 1, 40)
+    if staged:
+        params = _staged(params)
+    assert ptables is None and (state.carr_freq.abs().max() > 3.9e6)
+    end = torch.full((12,), iq.shape[0] // 2, device=cuda)
+    args = (iq, 0, tables, None, state, params, 40, end)
+    want = engine.track_superblock_epochs(*args)
+    _assert_tracks_close(engine.track_superblock(*args), want,
+                         exact=corr.cluster_size(12) == 1)
+    bank = corr.track_superblock_staged_bank if staged \
+        else corr.track_superblock_bank
+    res = bank(iq, 0, tables, None, *engine.pack_state(state), end, 40,
+               params, up_margin=engine.UP_MARGIN, cluster=1)
+    torch.cuda.synchronize()
+    _assert_tracks_close(engine._finish_bank(engine.unpack_state(*res[0]),
+                                             res[1]), want, exact=True)
+
+
+def test_circshift_acquisition_on_card_matches_cpu(cuda):
+    """gps_l2c's circular-shift search (±1 kHz here) with the CL period
+    search, on the card and on the CPU: the same detection, code phase,
+    CL period (37, the scene's), coarse and fine carrier; peak metrics
+    within f32 FFT rounding (cuFFT against PocketFFT)."""
+    from cusdr_tpu_torch.acquisition.pcps import acquire
+    from cusdr_tpu_torch.io.synth import SynthSV, synthesize_if
+    cfg = get_config("gps_l2c", sampling_freq=2.048e6, if_freq=7000.0,
+                     acq_satellite_list=(3, 7, 9), acq_search_band=1000.0,
+                     fine_search_step=5.0, acq_threshold=3.0)
+    sig = get_signal("gps_l2c")
+    spc = cfg.samples_per_code
+    sv = SynthSV(prn=7, code_phase=7000.0 - 37 * spc, doppler_hz=90.0,
+                 cn0_dbhz=50)
+    x = synthesize_if(cfg, sig, [sv], num_ms=100, seed=3)
+    host = acquire(cfg, sig, x, "cpu")
+    card = acquire(cfg, sig, x, cuda)
+    assert np.array_equal(card.detected, host.detected)
+    det = host.detected
+    assert det.tolist() == [False, True, False]
+    for name in ("code_phase", "pilot_phase", "coarse_freq", "carr_freq"):
+        assert np.array_equal(getattr(card, name)[det],
+                              getattr(host, name)[det]), name
+    assert card.pilot_phase[1] == 37 and card.code_phase[1] == 7000
+    assert np.allclose(card.peak_metric, host.peak_metric, rtol=1e-3)

@@ -78,8 +78,32 @@ def test_every_preset_has_a_shape():
 @given(shape=st.sampled_from(SHAPES), cluster=st.sampled_from([1, 2, 4, 8]),
        data=st.data())
 def test_stage_plan_holds_every_tap_of_a_window(shape, cluster, data):
+    _check_plan(shape, cluster, data, sample_bytes=2)
+
+
+@settings(max_examples=150, deadline=None)
+@given(shape=st.sampled_from(SHAPES), cluster=st.sampled_from([1, 2, 4, 8]),
+       data=st.data())
+def test_stage_plan_holds_every_tap_of_an_int16_window(shape, cluster,
+                                                       data):
+    """The same with int16 samples: 4 bytes a sample in the sample
+    buffers (a 1 ms epoch at 18 Msps is then one 72 KB chunk)."""
+    _check_plan(shape, cluster, data, sample_bytes=4)
+
+
+def test_int16_stage_plan_at_the_presets():
+    # gps_l1ca: one chunk of 18 432 samples, 73 776 sample bytes a stage;
+    # bds_b1c WB's 180 008-sample window needs more chunks than with int8
+    l1 = tcorr.stage_plan(18008, 9, 0, 1, sample_bytes=4)
+    assert (l1.chunk, l1.per_rank, l1.samp_bytes) == (18432, 1, 73776)
+    assert (tcorr.stage_plan(180008, 1, 2, 1, sample_bytes=4).per_rank
+            > tcorr.stage_plan(180008, 1, 2, 1).per_rank)
+
+
+def _check_plan(shape, cluster, data, sample_bytes):
     name, blk, k, n_pilots = shape
-    plan = tcorr.stage_plan(blk, k, n_pilots, cluster)
+    plan = tcorr.stage_plan(blk, k, n_pilots, cluster,
+                            sample_bytes=sample_bytes)
     # one block per row: whole 512-thread strides (the per-epoch kernels'
     # order of summation); a cluster: whole carrier steps
     assert plan.chunk % (512 if cluster == 1 else 128) == 0
@@ -99,7 +123,7 @@ def test_stage_plan_holds_every_tap_of_a_window(shape, cluster, data):
         for j in range(plan.per_rank):
             ranges = tcorr.staged_ranges(plan, j, rank, (off_lo, off_hi),
                                          [(lo, lo + spread)] * (1 + n_pilots),
-                                         k, blk)
+                                         k, blk, sample_bytes=sample_bytes)
             for (first, x0, x1), size in zip(ranges, sizes):
                 # the aligned copy starts on the grid, within 16 bytes of
                 # what was asked for, and fits the buffer
@@ -113,7 +137,8 @@ def test_stage_plan_holds_every_tap_of_a_window(shape, cluster, data):
             # I/Q of samples n0 .. n1 - 1, and taps E (start + n) to
             # L + 1 (start + n + 2k + 1) of each
             _, s0, s1 = ranges[0]
-            assert s0 <= 2 * (off + n0) and 2 * (off + n1) <= s1, name
+            assert (s0 <= sample_bytes * (off + n0)
+                    and sample_bytes * (off + n1) <= s1), name
             for _, r0, r1 in ranges[1:]:
                 assert r0 <= start + n0 and start + n1 + 2 * k <= r1 - 1, (
                     name, cluster)
@@ -199,8 +224,14 @@ def test_staged_superblock_kernel_is_registered_and_takes_cuda_tensors_only():
     assert "superblock_staged" in tcorr.SOURCES
     for src in ("superblock_staged.cu", "superblock_common.cuh"):
         assert (tcorr.CSRC_DIR / src).is_file()
+    # int8 launches count under the variant, int16 ones under
+    # "<variant>[int16]"
+    staged = [n for n in tcorr.LAUNCHES
+              if n.startswith("track_superblock_staged")]
     assert tcorr.STAGED_SUPERBLOCK_VARIANTS == tuple(
-        n for n in tcorr.LAUNCHES if n.startswith("track_superblock_staged"))
+        n for n in staged if not n.endswith("[int16]"))
+    assert tuple(n + "[int16]" for n in tcorr.STAGED_SUPERBLOCK_VARIANTS) \
+        == tuple(n for n in staged if n.endswith("[int16]"))
     _, port, _ = _setup("gps_l1ca")
     iq, sb_start, tables, _, state, params, n_epochs = port
     end = torch.full((3,), iq.shape[0] // 2)

@@ -182,9 +182,15 @@ def test_superblock_kernel_is_registered_and_takes_cuda_tensors_only():
     for name in ("track_superblock", "track_superblock_pilot",
                  "track_superblock_dual_pilot"):
         assert name in tcorr.LAUNCHES
+    # int8 launches count under the variant, int16 ones under
+    # "<variant>[int16]"
+    int8 = [n for n in tcorr.LAUNCHES if not n.endswith("[int16]")]
     assert tcorr.SUPERBLOCK_VARIANTS == tuple(
-        n for n in tcorr.LAUNCHES if n.startswith("track_superblock")
+        n for n in int8 if n.startswith("track_superblock")
         and n not in tcorr.STAGED_SUPERBLOCK_VARIANTS)
+    assert tuple(n + "[int16]" for n in tcorr.SUPERBLOCK_VARIANTS) == tuple(
+        n for n in tcorr.LAUNCHES if n.startswith("track_superblock")
+        and n.endswith("[int16]") and "staged" not in n)
     assert [tcorr.cluster_size(c) for c in (6, 12, 15, 16, 17, 33, 48, 66,
                                             67, 96)] == [
         8, 8, 8, 8, 4, 4, 2, 2, 1, 1]
