@@ -100,9 +100,31 @@ Phases, each of which fails the run when it fails:
    superblock kernel's int16 instantiation) and through the per-block path
    (the staged one's): equal to the int8 runs, the sums exactly 64 times;
    the eager loops of both on the int16 record (the int16 per-epoch
-   kernels).
+   kernels);
+14. multi-signal tracking at full width: ``track_multi`` over the records
+   of phases 4, 6 and 7 at their presets (12, 12 and 15 channels at the
+   SVs' truth; a 10 ms hyperepoch over their common 2.47 s), each bank on
+   its own CUDA stream through its superblock kernel; each bank equal, every
+   field element for element, to a standalone ``track`` of it with the
+   lock gate off, timed in the same call; then ``run_multi`` on the
+   gps_l1ca and gal_e5a records from acquisition to nav: every SV
+   acquired, every channel in lock;
+15. the gather path: ``Receiver.run`` at bds_b1c with ``sampling_freq``
+   4.096 Msps (the 0.06-chip spacing is 0.24 samples) on a 2.5 s 15-SV
+   scene at 47 dB-Hz, in NB and WB mode: every SV acquired, every channel
+   locked, no kernel of ops/ launched; 100 epochs of the card's gather
+   step held against the CPU's from the same states; then
+   ``time_blocks=2`` on the per-block gather path, locked over each
+   block's tail;
+16. the CLI as subprocesses: ``run --out D --no-plots --timing`` on phase
+   5's record written to a file at the preset's defaults (three
+   checkpoints, fixes within phase 5's bounds, the timing table; tracking
+   and fixes equal to ``Receiver(cfg).run()`` on the same file), the same
+   with ``--skip-acquisition D/acqResults.npz`` (equal tracking outputs),
+   and ``run-multi`` on 1.3 s cut from the records of phases 4 and 6 at
+   their presets.
 
-The scenes of phases 3e-13 are made in nine worker processes while the
+The scenes of phases 3e-15 are made in ten worker processes while the
 kernel checks of phases 1-3c run, and are all finished before the
 host-bound measurements (the 500-epoch loops, phase 3d) and phase 4
 start.
@@ -918,9 +940,10 @@ def _true_carrier(cfg, sv):
 def _superblocks(cfg, n_epochs):
     """Superblocks ``engine.track`` cuts ``n_epochs`` into."""
     from cusdr_tpu_torch.signals.defs import get_signal
-    per = max(int(cfg.superblock_ms
-                  / get_signal(cfg.signal).code_period_ms), 1)
-    return -(-n_epochs // per)
+    from cusdr_tpu_torch.tracking.engine import (superblock_epochs,
+                                                 superblock_plan)
+    return len(superblock_plan(
+        n_epochs, superblock_epochs(cfg, get_signal(cfg.signal))))
 
 
 def eager_track(card, tag, cfg, made, res, variant, n_epochs):
@@ -1754,6 +1777,427 @@ def int16_path(card: str, made, seq_res):
     return out
 
 
+def _truth_channels(cfg, svs):
+    """Channels at the SVs' true carriers and code phases."""
+    return [(sv.prn, _true_carrier(cfg, sv), int(round(sv.code_phase)))
+            for sv in svs]
+
+
+# phase 14: (preset, overrides, scene, the superblock kernel of its bank)
+MULTI_BANKS = (("gps_l1ca", {}, "main", "track_superblock"),
+               ("gal_e5a", {}, "e5a", "track_superblock_pilot"),
+               ("bds_b1c", B1C_WB, "b1c", "track_superblock_dual_pilot"))
+
+
+def multi_signal_path(card: str, scenes):
+    """Phase 14: ``track_multi`` over the records of phases 4, 6 and 7 at
+    their presets, channels at the SVs' truth, over the common span (a 10
+    ms hyperepoch, strides 10, 10, 1), each bank on its own stream; each
+    bank against a standalone ``track`` of it with the lock gate off, in
+    the same call: every field equal, element for element.  Then
+    ``run_multi`` on the gps_l1ca and gal_e5a records from acquisition to
+    nav: every SV acquired, every channel in lock.  Returns the launches
+    of each bank's superblock kernel in (the ``track_multi`` run, the
+    ``run_multi`` run)."""
+    import numpy as np
+    import torch
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.ops.correlator import LAUNCHES, reset_launches
+    from cusdr_tpu_torch.receiver import run_multi
+    from cusdr_tpu_torch.signals.defs import get_signal
+    from cusdr_tpu_torch.tracking import engine
+    from cusdr_tpu_torch.tracking.multi import track_multi
+    specs = []
+    for signal, over, name, _ in MULTI_BANKS:
+        cfg = get_config(signal, lock_detect=False, **over)
+        svs, iq, _ = scenes[name]
+        specs.append((cfg, get_signal(signal), iq,
+                      _truth_channels(cfg, svs)))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    multi = track_multi(specs, device="cuda")
+    multi_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    variants = [b[3] for b in MULTI_BANKS]
+    others = {k: v for k, v in launches.items() if v and k not in variants}
+    if others or not all(launches[v] for v in variants):
+        raise AssertionError(f"[multi] launches {launches}")
+    span_ms = multi[0].i_p.shape[1] * specs[0][1].code_period_ms
+    solo_s, n_samples = 0.0, 0
+    for (cfg, sig, iq, chans), got, variant in zip(specs, multi, variants):
+        n_ep = got.i_p.shape[1]
+        if n_ep * sig.code_period_ms != span_ms:
+            raise AssertionError(f"[multi] {cfg.signal}: {n_ep} epochs")
+        if launches[variant] != _superblocks(cfg, n_ep):
+            raise AssertionError(f"[multi] {cfg.signal}: "
+                                 f"{launches[variant]} {variant} launches "
+                                 f"for {n_ep} epochs")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        solo = engine.track(cfg, sig, iq, chans, "cuda", n_epochs=n_ep)
+        solo_s += time.perf_counter() - t0
+        _only(f"multi {cfg.signal} alone", dict(LAUNCHES), variant,
+              _superblocks(cfg, n_ep))
+        differ = {f: int((getattr(got, f) != getattr(solo, f)).sum())
+                  for f in engine.TrackOutputs._fields}
+        if any(differ.values()):
+            raise AssertionError(f"[multi] {cfg.signal}: elements differing "
+                                 f"from the standalone track: {differ}")
+        n_samples += span_ms * 1e-3 * cfg.sampling_freq
+        log(f"[multi] {cfg.signal}: {len(chans)} channels x {n_ep} epochs "
+            f"of {sig.code_period_ms:g} ms, {launches[variant]} {variant} "
+            f"launches; 0 elements differ from the standalone track")
+    log(f"[multi] on {card}: 3 banks over {span_ms:g} ms at once in "
+        f"{multi_s:.3f} s (records to the card included) against "
+        f"{solo_s:.3f} s for the three standalone tracks in turn; "
+        f"{n_samples / multi_s / 1e6:.1f} record Msps in all "
+        f"({span_ms * 1e-3 / multi_s:.3f}x real time for the three)")
+    overlap = _stream_overlap(card, specs, span_ms)
+
+    entries = [(get_config("gps_l1ca"), scenes["main"][1]),
+               (get_config("gal_e5a"), scenes["e5a"][1])]
+    torch.cuda.synchronize()
+    reset_launches()
+    results = run_multi(entries, device="cuda", n_ms=2500)
+    rm = dict(LAUNCHES)
+    want = {"track_superblock": 3, "track_superblock_pilot": 3}
+    if {k: v for k, v in rm.items() if v} != want:
+        raise AssertionError(f"[run-multi] launches {rm}")
+    for (cfg, _), res, name, pilot in zip(entries, results, ("main", "e5a"),
+                                          (False, True)):
+        tol = cfg.acq_search_step / 2 if pilot else None
+        n_ep, snr, fr_err, acq_err = check_main(
+            cfg, scenes[name][0], res, None, tail_epochs=500, pilot=pilot,
+            acq_carr_tol_hz=tol)
+        log(f"[run-multi] {cfg.signal} on {card}: {len(res.channels)} "
+            f"channels acquired in {res.timings['acquisition_s']:.3f} s, "
+            f"{n_ep} epochs locked (lowest mean|I_P|/std(Q_P) "
+            f"{min(float(x.min()) for x in snr):.1f}, carrier error max "
+            f"{np.abs(fr_err).max():.2f} Hz); both banks tracked at once "
+            f"in {res.timings['tracking_s']:.3f} s")
+    return ({v: launches[v] for v in variants},
+            {v: rm.get(v, 0) for v in variants}, overlap)
+
+
+def _stream_overlap(card, specs, span_ms):
+    """Whether the banks' superblock kernels overlap on their streams: the
+    card's time (CUDA events on the current stream) for the phase-14
+    banks' superblocks over ``span_ms``, records already on the card, run
+    one bank after another and all at once by
+    ``track_superblock_multi``, in turns (apart, together, together,
+    apart).  Returns the four spans in ms."""
+    import torch
+    from cusdr_tpu_torch.tracking import engine
+    from cusdr_tpu_torch.tracking.multi import (BankInputs, _hyper_grid,
+                                                track_superblock_multi)
+    banks, params_list, per = [], [], []
+    for cfg, sig, iq, chans in specs:
+        params = engine.make_track_params(cfg, sig)
+        dops = engine.code_dopplers(cfg, sig, chans)
+        ct, pt = engine.build_tables(cfg, sig, params, chans, dops)
+        banks.append(BankInputs(
+            torch.from_numpy(iq).cuda(), 0, torch.from_numpy(ct).cuda(),
+            None if pt is None else torch.from_numpy(pt).cuda(),
+            engine.init_channel_state(chans, sig.chip_rate_hz, "cuda",
+                                      dopplers=dops,
+                                      carrier_freq_hz=sig.carrier_freq_hz),
+            len(iq) // 2))
+        params_list.append(params)
+        per.append(engine.superblock_epochs(cfg, sig))
+    hyper, strides = _hyper_grid([sp[1] for sp in specs])
+    n_hyper = int(span_ms) // hyper
+
+    def apart():
+        for b, p, s, n in zip(banks, params_list, strides, per):
+            track_superblock_multi([b], [p], [s], n_hyper, [n])
+
+    def together():
+        track_superblock_multi(banks, params_list, strides, n_hyper, per)
+
+    together()
+    torch.cuda.synchronize()
+    spans = []
+    for fn in (apart, together, together, apart):
+        first, last = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        first.record()
+        fn()
+        last.record()
+        last.synchronize()
+        spans.append(first.elapsed_time(last))
+    log(f"[multi] streams on {card}: the three banks' superblocks over "
+        f"{span_ms:g} ms take {spans[0]:.3f} / {spans[3]:.3f} ms of the "
+        f"card one bank after another and {spans[1]:.3f} / {spans[2]:.3f} "
+        f"ms on three streams at once (CUDA events, records on the card; "
+        f"together / apart {min(spans[1:3]) / min(spans[0], spans[3]):.3f})")
+    return spans
+
+
+# phase 15: bds_b1c at 4.096 Msps, where the 0.06-chip spacing is 0.24
+# samples (the gather path); B1C_SCENE's Dopplers, 47 dB-Hz
+B1C_GATHER = dict(sampling_freq=4.096e6)
+B1C_GATHER_SCENE = ("bds_b1c", B1C_GATHER, list(range(19, 34)), 2.5, 47.0,
+                    B1C_SCENE[5])
+GATHER_EPOCHS = 100     # epochs of the card's step held against the CPU's
+
+
+def _gather_card_vs_cpu(tag, cfg, iq, channels):
+    """``GATHER_EPOCHS`` epochs of the gather step on the card, each also
+    run on the CPU from the card's state: per output field the elements
+    that differ and the largest difference.  Block sizes, ``abs_sample``
+    and the state the step started from must be equal; the sums within
+    KERNEL_RTOL (the card's batched product and f32 cos/sin against the
+    CPU's)."""
+    import warnings
+    import torch
+    from cusdr_tpu_torch.signals.defs import get_signal
+    from cusdr_tpu_torch.tracking import engine
+    sig = get_signal(cfg.signal)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        params = engine.make_track_params(cfg, sig)
+    dops = engine.code_dopplers(cfg, sig, channels)
+    ct, pt = engine.build_element_tables(cfg, sig, params, channels)
+    on = {d: [torch.from_numpy(x).to(d) for x in (iq, ct, pt)]
+          for d in ("cpu", "cuda")}
+    state = engine.init_channel_state(channels, sig.chip_rate_hz, "cuda",
+                                      dopplers=dops,
+                                      carrier_freq_hz=sig.carrier_freq_hz)
+    end = len(iq) // 2
+    differ = {f: [0, 0.0] for f in engine.TrackOutputs._fields}
+    scale = 0.0
+    for _ in range(GATHER_EPOCHS):
+        x, t, p = on["cuda"]
+        new, got = engine.track_superblock(x, 0, t, p, state, params, 1, end)
+        x, t, p = on["cpu"]
+        _, want = engine.track_superblock(
+            x, 0, t, p, engine.ChannelState(*(v.cpu() for v in state)),
+            params, 1, end)
+        for f in differ:
+            a = getattr(got, f).cpu().double()
+            b = getattr(want, f).double()
+            d = (a - b).abs()
+            differ[f][0] += int((d > 0).sum())
+            differ[f][1] = max(differ[f][1], float(d.max()))
+        scale = max(scale, float(want.i_p.abs().max()),
+                    float(want.pilot_ip.abs().max()))
+        state = new
+    exact = ("abs_sample", "blksize", "carr_freq", "code_freq",
+             "rem_code_phase", "rem_carr_phase")
+    sums = ("i_e", "q_e", "i_p", "q_p", "i_l", "q_l", "pilot_ip", "pilot_qp")
+    bad = [f for f in exact if differ[f][0]]
+    tol = KERNEL_RTOL * (scale + 1.0)
+    bad += [f for f in sums if differ[f][1] > tol]
+    shown = {f: (n, float(f"{m:.3g}")) for f, (n, m) in differ.items() if n}
+    log(f"[{tag}] gather step, card against CPU from the same state, "
+        f"{GATHER_EPOCHS} epochs x {len(channels)} channels: differing "
+        f"elements and largest difference per field {shown or 'none'}; "
+        f"sums held to {tol:.3g}")
+    if bad:
+        raise AssertionError(f"[{tag}] card against CPU: {bad}")
+    return shown
+
+
+def gather_path(card: str, made):
+    """Phase 15: ``Receiver.run`` at bds_b1c with ``sampling_freq`` 4.096
+    Msps (15 channels) in NB and WB mode on the gather path: every SV
+    acquired, every channel locked, no kernel of ops/ launched; the card's
+    step against the CPU's; then ``time_blocks=2`` on the per-block gather
+    path, locked over each block's tail."""
+    import warnings
+    import torch
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.ops.correlator import LAUNCHES, reset_launches
+    from cusdr_tpu_torch.parallel.timeblocks import track_time_parallel
+    from cusdr_tpu_torch.receiver import Receiver
+    from cusdr_tpu_torch.runtime.profiling import (format_profile,
+                                                   profile_epochs)
+    from cusdr_tpu_torch.signals.defs import get_signal
+    svs, iq, made_s = made
+    sig = get_signal("bds_b1c")
+    log(f"[gather] scene: {len(svs)} SVs at {svs[0].cn0_dbhz:g} dB-Hz, "
+        f"{len(iq) // 2} samples at 4.096 Msps, made in {made_s:.1f} s")
+    out = {}
+    for flag, mode in ((1, "NB"), (2, "WB")):
+        tag = f"gather-{mode.lower()}"
+        cfg = get_config("bds_b1c", pilot_trk_flag=flag, **B1C_GATHER)
+        torch.cuda.synchronize()
+        reset_launches()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            res = Receiver(cfg, "cuda").run(iq)
+        if any(LAUNCHES.values()):
+            raise AssertionError(f"[{tag}] kernels launched: "
+                                 f"{dict(LAUNCHES)}")
+        n_ep, snr, fr_err, _ = check_main(cfg, svs, res, None,
+                                          tail_epochs=100, pilot=True)
+        rt = n_ep * sig.code_period_ms * 1e-3 / res.timings["tracking_s"]
+        log(f"[{tag}] on {card}: {len(res.channels)} channels acquired in "
+            f"{res.timings['acquisition_s']:.3f} s; {n_ep} epochs of 10 ms "
+            f"tracked in {res.timings['tracking_s']:.3f} s = {rt:.3f}x real "
+            f"time ({res.timings['tracking_s'] / n_ep * 1e3:.3f} ms per "
+            f"epoch), 0 kernel launches; lowest prompt SNR (data, pilot) "
+            f"{[round(float(x.min()), 1) for x in snr]}, carrier error max "
+            f"{abs(fr_err).max():.2f} Hz")
+        shown = _gather_card_vs_cpu(tag, cfg, iq, res.channels)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            prof = profile_epochs(cfg, "cuda", n_epochs=20)
+        log(f"[{tag}] gather step profile (profile_epochs, random "
+            f"samples) on {card}: {format_profile(prof)}")
+        tb = cfg.replace(time_blocks=2)
+        n_tp = n_ep // 2 * 2
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            trk = track_time_parallel(tb, sig, iq, res.channels, n_tp, 2,
+                                      device="cuda")
+        tp_s = time.perf_counter() - t0
+        if any(LAUNCHES.values()):
+            raise AssertionError(f"[{tag}] kernels launched with time "
+                                 f"blocks: {dict(LAUNCHES)}")
+        worst = _block_tails_locked(tag, trk, min(50, n_tp // 4),
+                                    pilot=True)
+        tp_rt = n_tp * sig.code_period_ms * 1e-3 / tp_s
+        log(f"[{tag}] time_blocks=2, per-block gather path on {card}: "
+            f"{n_tp} epochs x {tb.handoff_iters + 1} passes in {tp_s:.3f} "
+            f"s = {tp_rt:.3f}x real time, 0 kernel launches; lowest "
+            f"block-tail prompt SNR {worst:.1f}")
+        out[mode] = dict(realtime=rt, tracking_s=res.timings["tracking_s"],
+                         epochs=n_ep, time_blocks_realtime=tp_rt,
+                         card_vs_cpu=shown, profile=prof)
+    return out
+
+
+def _cli(args, timeout=600):
+    """``python -m cusdr_tpu_torch`` with ``args`` from the checkout;
+    raises unless it exits 0.  Returns its output."""
+    res = subprocess.run([sys.executable, "-m", "cusdr_tpu_torch", *args],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    if res.returncode != 0:
+        raise AssertionError(f"[cli] {' '.join(args[:1])} exited "
+                             f"{res.returncode}:\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    return res.stdout
+
+
+def _npz_differ(a, b):
+    """Fields of two .npz files that differ (or that one lacks)."""
+    import numpy as np
+    a, b = np.load(a), np.load(b)
+    return sorted(set(a.files) ^ set(b.files)) + [
+        k for k in a.files if k in b.files
+        and not np.array_equal(a[k], b[k], equal_nan=True)]
+
+
+def cli_path(card: str, scenes):
+    """Phase 16: the CLI as subprocesses on phase 5's 40 s PVT record:
+    ``run --out D --no-plots --timing`` at the preset's defaults (three
+    checkpoints, the timing table; tracking and fixes equal, element for
+    element, to ``Receiver(cfg).run()`` in this process on the same file
+    and config, and within phase 5's bounds), the same with
+    ``--skip-acquisition D/acqResults.npz`` (the same tracking outputs),
+    then ``run-multi`` on two 1.3 s files cut from the records of phases
+    4 and 6 at their presets."""
+    import tempfile
+    import numpy as np
+    from cusdr_tpu_torch import checkpoint, get_config
+    from cusdr_tpu_torch.receiver import Receiver
+    scn, samples, _ = scenes["pvt"]
+    cfg = _pvt_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        rec = tmp / "l1_pvt.bin"
+        samples.tofile(rec)
+        run = ["run", "--signal", "gps_l1ca", "--file", str(rec), "--fs",
+               str(cfg.sampling_freq), "--if-freq", str(cfg.if_freq),
+               "--ms", str(cfg.ms_to_process), "--no-plots", "--timing"]
+        t0 = time.perf_counter()
+        text = _cli(run + ["--out", str(tmp / "d")])
+        run_s = time.perf_counter() - t0
+        files = sorted(p.name for p in (tmp / "d").iterdir())
+        if files != ["acqResults.npz", "navResults.npz", "trkResults.npz"] \
+                or "TOTAL" not in text:
+            raise AssertionError(f"[cli] run wrote {files}:\n{text}")
+        # the config the CLI builds from those flags, run in this process
+        n_ep = np.load(tmp / "d" / "trkResults.npz")["i_p"].shape[1]
+        res = Receiver(get_config(
+            "gps_l1ca", file_name=str(rec), sampling_freq=cfg.sampling_freq,
+            if_freq=cfg.if_freq, ms_to_process=cfg.ms_to_process)).run(
+                n_epochs=n_ep)
+        if res.nav is None:
+            raise AssertionError("[cli] Receiver.run on the CLI's file "
+                                 "gave no fix")
+        checkpoint.save_tracking(tmp / "rx_trk.npz", res.track)
+        checkpoint.save_navigation(tmp / "rx_nav.npz", res.nav)
+        differ = (_npz_differ(tmp / "d" / "trkResults.npz",
+                              tmp / "rx_trk.npz")
+                  + _npz_differ(tmp / "d" / "navResults.npz",
+                                tmp / "rx_nav.npz"))
+        if differ:
+            raise AssertionError(f"[cli] run and Receiver.run differ in "
+                                 f"{differ}")
+        nav = np.load(tmp / "d" / "navResults.npz")
+        err = np.sqrt((nav["X"] - scn.rx_ecef[0]) ** 2
+                      + (nav["Y"] - scn.rx_ecef[1]) ** 2
+                      + (nav["Z"] - scn.rx_ecef[2]) ** 2)
+        # the test_e2e_l1ca bounds, though the preset models a troposphere
+        # the scene lacks (phase 5 runs with the correction off)
+        if not (len(err) >= 60 and err.mean() < 15.0 and err.max() < 50.0):
+            raise AssertionError(f"[cli] fixes outside the test_e2e_l1ca "
+                                 f"bounds: {len(err)}, mean {err.mean()} m, "
+                                 f"max {err.max()} m")
+        log(f"[cli] run on {card}: {len(err)} fixes, equal to "
+            f"Receiver.run's in this process (tracking and navigation, "
+            f"every element); 3-D error mean {err.mean():.2f} m, max "
+            f"{err.max():.2f} m with the troposphere modelled; {files} "
+            f"written; {run_s:.1f} s for the process")
+        for line in text.splitlines():
+            if line.startswith(("Stage", "acquisition ", "tracking ",
+                                "navigation ", "TOTAL")):
+                log(f"[cli]   {line}")
+        t0 = time.perf_counter()
+        text = _cli(run + ["--out", str(tmp / "e"), "--skip-acquisition",
+                           str(tmp / "d" / "acqResults.npz")])
+        resume_s = time.perf_counter() - t0
+        first = np.load(tmp / "d" / "trkResults.npz")
+        again = np.load(tmp / "e" / "trkResults.npz")
+        differ = [k for k in first.files
+                  if not np.array_equal(first[k], again[k], equal_nan=True)]
+        if "acquisition reused" not in text or differ \
+                or first.files != again.files:
+            raise AssertionError(f"[cli] resumed run: fields {differ} "
+                                 f"differ\n{text}")
+        log(f"[cli] run --skip-acquisition on {card}: the same "
+            f"{len(first.files)} tracking fields, every element equal; "
+            f"{resume_s:.1f} s for the process")
+        sets = []
+        for signal, name in (("gps_l1ca", "main"), ("gal_e5a", "e5a")):
+            fs = get_config(signal).sampling_freq
+            path = tmp / f"{signal}.bin"
+            scenes[name][1][:2 * int(1.3 * fs)].tofile(path)
+            sets += ["--set", f"{signal}={path}"]
+        t0 = time.perf_counter()
+        text = _cli(["run-multi", *sets, "--ms", "1000", "--out",
+                     str(tmp / "m")])
+        multi_s = time.perf_counter() - t0
+        for signal in ("gps_l1ca", "gal_e5a"):
+            trk = np.load(tmp / "m" / f"trk_{signal}.npz")
+            if trk["i_p"].shape[1] != 1000 or not (trk["blksize"] > 0).all():
+                raise AssertionError(f"[cli] run-multi {signal}: "
+                                     f"{trk['i_p'].shape}\n{text}")
+        log(f"[cli] run-multi on {card}: trk_gps_l1ca.npz and "
+            f"trk_gal_e5a.npz, 1000 epochs each, every channel to the end; "
+            f"{multi_s:.1f} s for the process")
+        for line in text.strip().splitlines():
+            log(f"[cli]   {line}")
+
+
 def _kernel_json(name, launches, checks):
     """One kernel's entry of the JSON line: ``ms`` / ``plain_ms`` /
     ``bound_ms`` at the first shape listed for it (its path's, the preset's
@@ -1822,13 +2266,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
-    # the scenes of phases 3e-13 (up to a few minutes of numpy each) are
+    # the scenes of phases 3e-15 (up to a few minutes of numpy each) are
     # made in worker processes, one each, while phases 1-3c run; all are
     # finished before phase 3e, so no scene work overlaps a receiver run
     pool = ProcessPoolExecutor(
-        max_workers=9, mp_context=multiprocessing.get_context("spawn"))
+        max_workers=10, mp_context=multiprocessing.get_context("spawn"))
     try:
         jobs = dict(main=pool.submit(scene_job, *MAIN_SCENE),
+                    b1c_gather=pool.submit(scene_job, *B1C_GATHER_SCENE),
                     pvt=pool.submit(pvt_scene_job),
                     l5=pool.submit(l5_scene_job),
                     e5a=pool.submit(scene_job, *E5A_SCENE),
@@ -1845,7 +2290,7 @@ def main() -> int:
         t0 = time.perf_counter()
         scenes = {name: job.result() for name, job in jobs.items()}
         log(f"[scenes] waited {time.perf_counter() - t0:.1f} s for the "
-            "scenes of phases 3e-13")
+            "scenes of phases 3e-15")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     # host-bound measurements run with no scene work beside them
@@ -1887,6 +2332,9 @@ def main() -> int:
     l2c_launches = l2c_path(smi, scenes["l2c_preset"])
     glo_launches = glonass_path(smi, scenes["glo_l1"], scenes["glo_l2"])
     launches.update(int16_path(smi, scenes["main"], seq_res))
+    multi_launches = multi_signal_path(smi, scenes)
+    gather = gather_path(smi, scenes["b1c_gather"])
+    cli_path(smi, scenes)
     missing = [name for name in checks if not launches.get(name)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
@@ -1903,7 +2351,13 @@ def main() -> int:
             entry["launches_glo_l2_time_parallel"] = glo_launches[1]
         elif entry["name"] == "track_superblock_staged":
             entry["launches_glo_l2_per_block"] = glo_launches[2]
-    print(json.dumps({"perf_correlator": tool, "profiles": profiled}))
+        if entry["name"] in multi_launches[0]:
+            # phase 14: the bank's launches in track_multi and run_multi
+            entry["launches_track_multi"] = multi_launches[0][entry["name"]]
+            entry["launches_run_multi"] = multi_launches[1][entry["name"]]
+    print(json.dumps({"perf_correlator": tool, "profiles": profiled,
+                      "gather_path": gather,
+                      "multi_stream_spans_ms": multi_launches[2]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

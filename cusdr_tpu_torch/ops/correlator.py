@@ -299,7 +299,7 @@ def _check_samples(iq):
                          "interleaved I/Q")
 
 
-def _clamp(x, size: int, win: int):
+def clamp_offsets(x, size: int, win: int):
     """Clamp window offsets as ``jax.lax.dynamic_slice`` clamps them: a
     negative offset counts from the end, then a window that would run past
     the end starts at the last full window (and at 0 below the start), so
@@ -355,7 +355,8 @@ def _tap_sums(w, frac, bb_i, bb_q, k: int, interp_taps: bool):
     return sums
 
 
-def _pack(sums, pilot_sums, pilot_rot, pilot2_rot, pilot_w1, pilot_w2):
+def pack_sums(sums, pilot_sums, pilot_rot, pilot2_rot, pilot_w1,
+              pilot_w2):
     """Output rows [C, 8], or [C, 16] with the rotated (and, for two banks,
     combined) pilot sums; ``pilot_sums`` is a list of 0-2 six-sum lists."""
     z = torch.zeros_like(sums[0])
@@ -389,8 +390,8 @@ def correlate_bank_plain(iq, off, table, wrow, start, alpha, remc, shi,
     dual banks combined as pilot_w1·bank1 + pilot_w2·bank2.  Returns then
     [C, 16]: iE qE iP qP iL qL piE pqE piP pqP piL pqL 0 0 0 0.
 
-    Offsets are clamped into range (``_clamp``: ``pstart`` against the
-    pilot table's own length); ``wrow`` must index rows of ``table``
+    Offsets are clamped into range (``clamp_offsets``: ``pstart`` against
+    the pilot table's own length); ``wrow`` must index rows of ``table``
     (values are not checked: that would cost a host sync).
     """
     _check(iq, off, table, wrow, start, alpha, remc, shi, slo, bsz, k,
@@ -427,14 +428,14 @@ def correlate_bank(iq, off, table, wrow, start, alpha, remc, shi, slo,
                          "carrier factors would overflow 48 KB of shared "
                          "memory")
     win = blk + 2 * k + 1
-    off = _clamp(off, iq.shape[0] // 2, blk)
-    start = _clamp(start, table.shape[1], win)
+    off = clamp_offsets(off, iq.shape[0] // 2, blk)
+    start = clamp_offsets(start, table.shape[1], win)
     wrow, alpha, remc, shi, slo, bsz = (
         x.contiguous() for x in (wrow, alpha, remc, shi, slo, bsz))
     n_pilots, p_ptr, ps_ptr, pa_ptr, p_len = 0, None, None, None, 0
     if ptable is not None:
         n_pilots = 1 if ptable.dim() == 2 else 2
-        pstart = _clamp(pstart, ptable.shape[-1], win)
+        pstart = clamp_offsets(pstart, ptable.shape[-1], win)
         palpha = palpha.contiguous()
         p_ptr, ps_ptr, pa_ptr = (ptable.data_ptr(), pstart.data_ptr(),
                                  palpha.data_ptr())
@@ -464,19 +465,20 @@ def stage_windows(iq, off, table, wrow, start, *, k: int, blk: int,
                   ptable=None, pstart=None):
     """Slice each row's windows out of the record and the tables, as the
     reference stages them with ``dynamic_slice`` before its staged kernel
-    (offsets clamped by ``_clamp``).  Arguments as ``correlate_bank_plain``.
+    (offsets clamped by ``clamp_offsets``).  Arguments as
+    ``correlate_bank_plain``.
     Returns (siq [C, blk, 2] of iq's dtype, wt [C, win], wp [C, win] /
     [C, 2, win] / None, int8), win = blk + 2k + 1, all contiguous."""
     win = blk + 2 * k + 1
     dev = iq.device
-    off = _clamp(off, iq.shape[0] // 2, blk)
+    off = clamp_offsets(off, iq.shape[0] // 2, blk)
     siq = iq.view(-1, 2)[off[:, None] + torch.arange(blk, device=dev)]
     m = torch.arange(win, device=dev)
-    start = _clamp(start, table.shape[1], win)
+    start = clamp_offsets(start, table.shape[1], win)
     wt = table[wrow[:, None], start[:, None] + m]
     wp = None
     if ptable is not None:
-        pidx = _clamp(pstart, ptable.shape[-1], win)[:, None] + m
+        pidx = clamp_offsets(pstart, ptable.shape[-1], win)[:, None] + m
         if ptable.dim() == 2:
             wp = ptable[wrow[:, None], pidx]
         else:
@@ -571,10 +573,10 @@ def correlate_windows_plain(siq, wt, alpha, remc, shi, slo, bsz, *, k: int,
     bb_i, bb_q = _baseband(siq, cosw, sinw, bsz)
     banks = [] if wp is None else [wp] if wp.dim() == 2 else [wp[:, 0],
                                                              wp[:, 1]]
-    return _pack(_tap_sums(wt, alpha, bb_i, bb_q, k, interp_taps),
-                 [_tap_sums(b, palpha, bb_i, bb_q, k, interp_taps)
-                  for b in banks],
-                 pilot_rot, pilot2_rot, pilot_w1, pilot_w2)
+    return pack_sums(_tap_sums(wt, alpha, bb_i, bb_q, k, interp_taps),
+                     [_tap_sums(b, palpha, bb_i, bb_q, k, interp_taps)
+                      for b in banks],
+                     pilot_rot, pilot2_rot, pilot_w1, pilot_w2)
 
 
 def correlate_windows(siq, wt, alpha, remc, shi, slo, bsz, *, k: int,
@@ -636,7 +638,8 @@ def correlate_windows_ramp_plain(siq, wt, alpha, remc, shi, slo, bsz, *,
            + slo[:, None] * n_lo[None, :])
     ph = (cyc - torch.floor(cyc)) * _TWO_PI
     bb_i, bb_q = _baseband(siq, torch.cos(ph), torch.sin(ph), bsz)
-    return _pack(_tap_sums(wt, alpha, bb_i, bb_q, k, True), [], 0, 0, 0, 0)
+    return pack_sums(_tap_sums(wt, alpha, bb_i, bb_q, k, True), [],
+                     0, 0, 0, 0)
 
 
 def correlate_windows_ramp(siq, wt, alpha, remc, shi, slo, bsz, *,
@@ -685,7 +688,8 @@ def correlate_windows_table_plain(siq, wt, tc, ts, alpha, c0, s0, bsz, *,
     cosw = c0[:, None] * tc - s0[:, None] * ts
     sinw = s0[:, None] * tc + c0[:, None] * ts
     bb_i, bb_q = _baseband(siq, cosw, sinw, bsz)
-    return _pack(_tap_sums(wt, alpha, bb_i, bb_q, k, True), [], 0, 0, 0, 0)
+    return pack_sums(_tap_sums(wt, alpha, bb_i, bb_q, k, True), [],
+                     0, 0, 0, 0)
 
 
 def correlate_windows_table(siq, wt, tc, ts, alpha, c0, s0, bsz, *,
@@ -970,7 +974,8 @@ def prefetch_window(ahead: int, abs_sample: int, blksize: int,
     win = blk + 2 * k + 1
 
     def clamp(x, size, width):
-        """``clamp_start`` of csrc/superblock_common.cuh (``_clamp``)."""
+        """``clamp_start`` of csrc/superblock_common.cuh
+        (``clamp_offsets``)."""
         return min(max(x + size if x < 0 else x, 0), size - width)
 
     off = clamp(abs_sample + ahead * blksize - sb_start, n_samples, blk)

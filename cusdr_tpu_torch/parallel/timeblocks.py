@@ -22,7 +22,10 @@ Two ways to run a pass, as in the reference: the flat bank over the whole
 record on the device, windows fetched by the kernel (``_track_blocks_flat``,
 the default), and the per-block path over per-block sample buffers with
 windows staged (``_track_blocks``); on a card each is one superblock-kernel
-launch per pass.  The reference vmaps
+launch per pass.  The gather path (``fast_code`` False) takes element tables
+and always the per-block path, as in the reference (its flat bank needs the
+sliced replicas), with the eager gather loop in the kernel's place.  The
+reference vmaps
 its per-block path; here the blocks' buffers are concatenated into one
 pseudo-record and run as one flat bank with a per-row record end, as the
 reference's sharded body does.  Sharding the block axis over several
@@ -39,7 +42,7 @@ import torch
 
 from ..signals.defs import SignalDef
 from ..tracking.engine import (ChannelState, TrackOutputs, TrackParams,
-                               TrackResults, build_replica_tables,
+                               TrackResults, build_tables,
                                code_dopplers, init_channel_state,
                                make_track_params, track_superblock,
                                track_superblock_epochs)
@@ -174,13 +177,16 @@ def track_time_parallel(cfg, sig: SignalDef, samples_iq: np.ndarray,
     are flagged through ``settle_epochs`` / ``epochs_per_block`` on the
     result and ``nav_solve`` masks them.  ``fetch_in_kernel`` picks the
     flat bank over the whole record (True) or the per-block path over
-    per-block buffers with staged windows (False).  ``epoch_loop`` runs the
-    eager epoch loop, the superblock kernels' plain version, in their place
-    on the card too (a yardstick for the kernels in the same process)."""
+    per-block buffers with staged windows (False); the gather path
+    (``fast_code`` False) always takes the per-block path.  ``epoch_loop``
+    runs the eager epoch loop, the superblock kernels' plain version, in
+    their place on the card too (a yardstick for the kernels in the same
+    process)."""
     device = torch.device(device)
     samples_iq = np.ascontiguousarray(np.asarray(samples_iq))
-    params = dataclasses.replace(make_track_params(cfg, sig),
-                                 fetch_in_kernel=fetch_in_kernel)
+    params = make_track_params(cfg, sig)
+    params = dataclasses.replace(
+        params, fetch_in_kernel=fetch_in_kernel and params.fast_code)
     spc = cfg.samples_per_code
     if settle_epochs is None:
         settle_epochs = cfg.settle_epochs
@@ -194,8 +200,7 @@ def track_time_parallel(cfg, sig: SignalDef, samples_iq: np.ndarray,
     states0, starts = predict_block_states(channels, cfg, sig, n_blocks,
                                            epochs_per_block, device)
     dopplers0 = code_dopplers(cfg, sig, channels)
-    ctabs, ptabs = build_replica_tables(cfg, sig, params, channels,
-                                        dopplers0)
+    ctabs, ptabs = build_tables(cfg, sig, params, channels, dopplers0)
     tables = torch.from_numpy(ctabs).to(device)
     ptables = None if ptabs is None else torch.from_numpy(ptabs).to(device)
 

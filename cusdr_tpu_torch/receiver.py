@@ -1,15 +1,15 @@
 """End-to-end receiver pipeline: acquisition → tracking → nav decode → PVT.
 
-Counterpart of cusdr_tpu/receiver.py for the ported slices.  Acquisition
-and tracking (sequential, or time-parallel with ``cfg.time_blocks > 1``)
-run on the caller's ``device``; nav decode and PVT are the package's
-numpy layers.  The LNAV decoder lives here, as in the reference, and
-``nav.dispatch`` reaches it from this module.
+Counterpart of cusdr_tpu/receiver.py.  Acquisition and tracking
+(sequential, or time-parallel with ``cfg.time_blocks > 1``) run on the
+caller's ``device``; nav decode and PVT are the package's numpy layers.
+``run_multi`` acquires several signals, one record each, then tracks all
+their banks at once (tracking/multi.py).  The LNAV decoder lives here, as
+in the reference, and ``nav.dispatch`` reaches it from this module.
 """
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -20,11 +20,13 @@ from .acquisition.pcps import acquire
 from .config import ReceiverConfig
 from .constants import SPEED_OF_LIGHT
 from .geodesy.transforms import cart2geo, cart2utm, find_utm_zone
+from .io.ingest import read_if_file
 from .nav import lnav
 from .nav.bits import find_preamble
 from .orbits.kepler import sat_pos_kepler
 from .pvt.lsq import least_square_pos
 from .pvt.pseudorange import calculate_pseudoranges, transmit_times
+from .runtime.profiling import StageTimer
 from .signals.defs import get_signal
 from .tracking.engine import track
 
@@ -233,23 +235,89 @@ def nav_solve(cfg, sig, track_res) -> Optional[NavSolutions]:
     return sol if sol.X else None
 
 
-def _acquire_record(cfg, sig, samples_iq, device):
-    """Real-branch interleave + acquisition on the leading samples, sized
-    for the coarse slabs (noncoh * coherent periods + 1) and the fine
-    stage (fine_n_codes + 1 periods; 45 covers the default 40 ms window
-    with margin).  Returns (interleaved samples, AcquisitionResult)."""
+def as_interleaved(cfg, samples_iq):
+    """A real sample stream (cfg.file_type == 1) as interleaved I/Q with
+    Q = 0; interleaved I/Q as it is."""
     if cfg.file_type == 1:
         inter = np.zeros(2 * len(samples_iq), samples_iq.dtype)
         inter[0::2] = samples_iq
-        samples_iq = inter
-    spc = cfg.samples_per_code
+        return inter
+    return samples_iq
+
+
+def acquisition_samples(cfg, sig) -> int:
+    """Leading samples acquisition reads: the coarse slabs (noncoh *
+    coherent periods + 1) and the fine stage (fine_n_codes + 1 periods; 45
+    covers the default 40 ms window with margin)."""
     n_coh = max(1, int(round(cfg.acq_coh_time
                              / max(sig.code_period_ms, 1e-9))))
-    n_acq = (cfg.acq_non_coh_time * n_coh
-             + max(cfg.fine_n_codes, 45) + 2) * spc
+    return (cfg.acq_non_coh_time * n_coh
+            + max(cfg.fine_n_codes, 45) + 2) * cfg.samples_per_code
+
+
+def _acquire_record(cfg, sig, samples_iq, device):
+    """Real-branch interleave + acquisition on the leading samples
+    (``acquisition_samples``).  Returns (interleaved samples,
+    AcquisitionResult)."""
+    samples_iq = as_interleaved(cfg, samples_iq)
+    n_acq = acquisition_samples(cfg, sig)
     acq_sig = (samples_iq[0:2 * n_acq:2].astype(np.float32)
                + 1j * samples_iq[1:2 * n_acq:2].astype(np.float32))
     return samples_iq, acquire(cfg, sig, acq_sig, device)
+
+
+def _stage_seconds(timer: StageTimer) -> Dict[str, float]:
+    """``ReceiverResults.timings`` from a StageTimer's stages."""
+    return {f"{name}_s": rec.seconds for name, rec in timer.stages.items()}
+
+
+def run_multi(entries, device="cuda", n_ms=None) -> list:
+    """Several signals at once, one IF record each, on ``device``.
+
+    entries: sequence of (cfg, samples_iq or None); None reads
+    ``cfg.file_name``.  Each signal is acquired on its own, then every
+    signal's channel bank is tracked at once (``tracking.multi
+    .track_multi``, no lock gate), then nav/PVT solves per signal.
+    ``n_ms``: common span, default the least ``cfg.ms_to_process`` given.
+    Returns a list of ReceiverResults, one per entry; each one's timings
+    hold its own acquisition and navigation seconds and the seconds of
+    the shared tracking stage."""
+    from .tracking.multi import track_multi
+    device = resolve_device(device)
+    staged = []
+    for cfg, samples_iq in entries:
+        sig = get_signal(cfg.signal)
+        if samples_iq is None:
+            samples_iq = read_if_file(cfg.file_name, cfg)
+        timer = StageTimer(sampling_freq=cfg.sampling_freq, device=device)
+        with timer.stage("acquisition",
+                         samples=acquisition_samples(cfg, sig)):
+            samples_iq, acq = _acquire_record(cfg, sig, samples_iq, device)
+        channels = acq.best_channels(cfg.num_channels)
+        staged.append((cfg, sig, samples_iq, acq, channels, timer))
+    specs = [(c, s, iq, ch) for c, s, iq, _, ch, _ in staged if ch]
+    if n_ms is None:
+        lims = [c.ms_to_process for c, *_ in staged if c.ms_to_process]
+        n_ms = min(lims) if lims else None
+    shared = StageTimer(device=device)
+    trks = []
+    if specs:
+        with shared.stage("tracking"):
+            trks = track_multi(specs, n_ms=n_ms, device=device)
+    out, ti = [], 0
+    for cfg, sig, iq, acq, channels, timer in staged:
+        if not channels:
+            out.append(ReceiverResults(acq, None, None, [],
+                                       _stage_seconds(timer)))
+            continue
+        trk = trks[ti]
+        ti += 1
+        timer.stages["tracking"] = shared.stages["tracking"]
+        with timer.stage("navigation"):
+            nav = nav_solve(cfg, sig, trk)
+        out.append(ReceiverResults(acq, trk, nav, channels,
+                                   _stage_seconds(timer)))
+    return out
 
 
 @dataclass
@@ -258,8 +326,9 @@ class ReceiverResults:
     track: object
     nav: Optional[NavSolutions]
     channels: list
-    # host-clock seconds per stage; each stage ends with its results on
-    # the host, so the device work is included
+    # host-clock seconds per stage ("acquisition_s", "tracking_s",
+    # "navigation_s"), each ended with the device synchronised, so the
+    # device work is included (runtime.profiling.StageTimer)
     timings: Dict[str, float] = field(default_factory=dict)
 
 
@@ -272,25 +341,18 @@ class Receiver:
         self.sig = get_signal(cfg.signal)
         self.device = resolve_device(device)
 
-    def run(self, samples_iq: np.ndarray,
-            n_epochs: Optional[int] = None) -> ReceiverResults:
-        """samples_iq: interleaved I/Q, int8 or int16 (cfg.data_type), or,
-        for cfg.file_type == 1, a real sample stream of either type,
-        processed as I + j·0 (the carrier mix selects the +IF signal; its
-        image at -IF lies outside the correlator's band)."""
+    def acquire(self, samples_iq: np.ndarray):
+        """Acquisition on the record's leading samples.  Returns (the
+        record as interleaved I/Q, AcquisitionResult)."""
+        return _acquire_record(self.cfg, self.sig, samples_iq, self.device)
+
+    def track(self, samples_iq: np.ndarray, channels,
+              n_epochs: Optional[int] = None):
+        """Track ``channels`` through the interleaved record: sequentially,
+        or time-parallel with ``cfg.time_blocks > 1`` (n_epochs rounded
+        down to a block multiple)."""
         cfg = self.cfg
-        timings = {}
-        t0 = time.perf_counter()
-        samples_iq, acq = _acquire_record(cfg, self.sig, samples_iq,
-                                          self.device)
-        timings["acquisition_s"] = time.perf_counter() - t0
-        channels = acq.best_channels(cfg.num_channels)
-        if not channels:
-            return ReceiverResults(acq, None, None, [], timings)
-        t0 = time.perf_counter()
         if cfg.time_blocks > 1:
-            # time-parallel tracking (parallel/timeblocks.py): n_epochs
-            # rounded down to a block multiple
             from .parallel.timeblocks import track_time_parallel
             spc = cfg.samples_per_code
             total = len(samples_iq) // 2
@@ -298,14 +360,34 @@ class Receiver:
             if n_epochs is None:
                 n_epochs = int((total - max_phase - 2 * spc) // spc)
             n_epochs = (n_epochs // cfg.time_blocks) * cfg.time_blocks
-            track_res = track_time_parallel(
+            return track_time_parallel(
                 cfg, self.sig, samples_iq, channels, n_epochs,
                 cfg.time_blocks, device=self.device)
-        else:
-            track_res = track(cfg, self.sig, samples_iq, channels,
-                              self.device, n_epochs=n_epochs)
-        timings["tracking_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        nav = nav_solve(cfg, self.sig, track_res)
-        timings["navigation_s"] = time.perf_counter() - t0
-        return ReceiverResults(acq, track_res, nav, channels, timings)
+        return track(cfg, self.sig, samples_iq, channels, self.device,
+                     n_epochs=n_epochs)
+
+    def run(self, samples_iq: Optional[np.ndarray] = None,
+            n_epochs: Optional[int] = None) -> ReceiverResults:
+        """samples_iq: interleaved I/Q, int8 or int16 (cfg.data_type), or,
+        for cfg.file_type == 1, a real sample stream of either type,
+        processed as I + j·0 (the carrier mix selects the +IF signal; its
+        image at -IF lies outside the correlator's band); None reads
+        ``cfg.file_name``."""
+        cfg = self.cfg
+        if samples_iq is None:
+            samples_iq = read_if_file(cfg.file_name, cfg)
+        timer = StageTimer(sampling_freq=cfg.sampling_freq,
+                           device=self.device)
+        with timer.stage("acquisition",
+                         samples=acquisition_samples(cfg, self.sig)):
+            samples_iq, acq = self.acquire(samples_iq)
+        channels = acq.best_channels(cfg.num_channels)
+        if not channels:
+            return ReceiverResults(acq, None, None, [],
+                                   _stage_seconds(timer))
+        with timer.stage("tracking", samples=len(samples_iq) // 2):
+            track_res = self.track(samples_iq, channels, n_epochs)
+        with timer.stage("navigation"):
+            nav = nav_solve(cfg, self.sig, track_res)
+        return ReceiverResults(acq, track_res, nav, channels,
+                               _stage_seconds(timer))

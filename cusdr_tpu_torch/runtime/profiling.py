@@ -23,14 +23,24 @@ in a process some minutes old a trace of one short launch comes back empty.
 The device numbers come from ``torch.profiler`` (CUPTI) and from CUDA
 events and exist only on a CUDA device; on the CPU they are None ("not
 measured").
+
+For the receiver's stages (the CLI's ``--timing`` and ``--profile``):
+``StageTimer`` accumulates wall seconds and samples per named stage and
+prints them with the real-time factor; a stage that ran work on a CUDA
+device ends with ``torch.cuda.synchronize``, so its seconds include the
+device's work.  ``device_trace`` records the enclosed block with
+``torch.profiler`` and writes a Chrome trace into a directory.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 import time
+from pathlib import Path
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -44,6 +54,83 @@ _CORRELATOR_KERNELS = ("correlate_bank_kernel", "correlate_windows")
 # the superblock kernels' names in a trace, windows fetched / staged
 _SUPERBLOCK_KERNELS = {True: "track_superblock_kernel",
                        False: "track_superblock_staged_kernel"}
+
+
+@dataclasses.dataclass
+class StageRecord:
+    seconds: float = 0.0
+    calls: int = 0
+    samples: int = 0
+
+
+@dataclasses.dataclass
+class StageTimer:
+    """Accumulates per-stage wall time and sample counts.
+
+    >>> timer = StageTimer(sampling_freq=18e6, device="cuda")
+    >>> with timer.stage("acquisition", samples=n):
+    ...     acquire(...)
+    >>> print(timer.report())
+
+    With a CUDA ``device`` every stage ends with
+    ``torch.cuda.synchronize(device)``, so that its seconds hold the work
+    it queued on the card and not only the time to queue it."""
+    sampling_freq: float = 0.0
+    device: Optional[object] = None
+    stages: Dict[str, StageRecord] = dataclasses.field(default_factory=dict)
+
+    @contextlib.contextmanager
+    def stage(self, name: str, samples: int = 0):
+        rec = self.stages.setdefault(name, StageRecord())
+        t0 = time.perf_counter()
+        try:
+            yield rec
+        finally:
+            if self.device is not None \
+                    and torch.device(self.device).type == "cuda":
+                torch.cuda.synchronize(self.device)
+            rec.seconds += time.perf_counter() - t0
+            rec.calls += 1
+            rec.samples += samples
+
+    def realtime_factor(self, name: str) -> float:
+        rec = self.stages.get(name)
+        if not rec or not rec.seconds or not self.sampling_freq:
+            return float("nan")
+        return (rec.samples / rec.seconds) / self.sampling_freq
+
+    def report(self) -> str:
+        lines = ["Stage              time [s]   calls     Msamples  xRT"]
+        total = 0.0
+        for name, rec in self.stages.items():
+            total += rec.seconds
+            xrt = self.realtime_factor(name)
+            lines.append(
+                f"{name:<18} {rec.seconds:9.3f} {rec.calls:7d} "
+                f"{rec.samples / 1e6:11.2f}  "
+                f"{'' if xrt != xrt else f'{xrt:.2f}'}")
+        lines.append(f"{'TOTAL':<18} {total:9.3f}")
+        return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: Optional[str]):
+    """``torch.profiler`` trace of the enclosed block (CPU activity, and
+    CUDA activity where a card is present), written as a Chrome trace
+    ``trace.json`` into ``trace_dir``; a no-op when ``trace_dir`` is
+    falsy.  View with chrome://tracing or Perfetto."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(trace_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(str(out / "trace.json"))
 
 
 def make_bank(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
@@ -66,8 +153,7 @@ def make_bank(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
     channels = [(prn, cfg.if_freq + fdma * prn + 500.0 * (j - n_ch // 2),
                  149 * j) for j, prn in enumerate(prns)]
     dops = engine.code_dopplers(cfg, sig, channels)
-    ctabs, ptabs = engine.build_replica_tables(cfg, sig, params, channels,
-                                               dops)
+    ctabs, ptabs = engine.build_tables(cfg, sig, params, channels, dops)
     tables = torch.from_numpy(ctabs).to(device)
     ptables = None if ptabs is None else torch.from_numpy(ptabs).to(device)
     base = engine.init_channel_state(channels, sig.chip_rate_hz, device,

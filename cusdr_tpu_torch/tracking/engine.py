@@ -1,4 +1,4 @@
-"""Channel-bank tracking engine in PyTorch: the gps_l1ca main-path slice.
+"""Channel-bank tracking engine in PyTorch.
 
 Counterpart of cusdr_tpu/tracking/engine.py (same names, fields and
 [n_epochs, C] output layout).  ``track_superblock`` tracks the whole bank
@@ -24,13 +24,23 @@ Doppler left after that offset aids its code rate), both tap modes
 are instantiated for both); windows fetched in the kernel
 (``fetch_in_kernel``, the default) or staged before it; a scalar or per-row
 record end, so that one flat bank can hold rows of several time blocks
-(parallel/timeblocks.py).  The exact per-epoch gather path (correlator
-spacing under half a sample) raises ``NotImplementedError`` (ROADMAP.md,
-Queue A item 3d).
+(parallel/timeblocks.py).
+
+Where the correlator spacing falls under half a sample (``fast_code``
+False: bds_b1c's 0.06 chips below 8.525 Msps) the replica tables cannot
+hold an E-L offset of at least one sample, and the engine takes the
+reference's per-epoch gather path: chip-grid element tables
+(``build_element_tables``) and, per epoch, the E/P/L chips of every sample
+gathered by ceil-index from them (``_epoch_bank_gather``).  The reference
+has no Pallas kernel there, and neither has the port: on a card as on the
+CPU it is the eager loop of [C, blk] tensor ops, under the same
+``track_superblock`` entry.
 """
 
 from __future__ import annotations
 
+import functools
+import warnings
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Sequence
 
@@ -38,8 +48,9 @@ import numpy as np
 import torch
 
 from ..signals.defs import SignalDef
-from ..ops.correlator import (correlate_bank, correlate_windows,
-                              stage_windows, track_superblock_bank,
+from ..ops.correlator import (clamp_offsets, correlate_bank,
+                              correlate_windows, pack_sums, stage_windows,
+                              track_superblock_bank,
                               track_superblock_staged_bank)
 from .cno import cno_vsm, pll_lock_detector
 from .loop_filters import (calc_loop_coef, calc_loop_coef_carr3,
@@ -54,11 +65,14 @@ UP_MARGIN = 1024
 
 @dataclass(frozen=True)
 class TrackParams:
-    """Static tracking parameters (the fast-path subset of the reference's
-    TrackParams, same names and defaults)."""
+    """Static tracking parameters (the reference's TrackParams less its
+    TPU-only fields, same names and defaults)."""
     fs: float
     code_len: int               # chips per code period
+    elements_per_chip: int      # data code elements per chip
+    code_freq_basis: float      # nominal chip rate [Hz]
     blk: int                    # fixed block size [samples]
+    spacing: float              # E-L correlator spacing [chips]
     tau1_code: float
     tau2_code: float
     tau1_carr: float
@@ -91,6 +105,13 @@ class TrackParams:
                                     # record and tables at per-row offsets;
                                     # False = windows staged with tensor
                                     # indexing before the staged kernel
+    fast_code: bool = True      # sliced pre-sampled replicas; False = the
+                                # per-epoch gather from element tables
+                                # (spacing under half a sample)
+    pilot_epc: int = 0          # gather path: pilot elements per chip (0 =
+                                # elements_per_chip)
+    pilot2_epc: int = 0         # gather path: bank-2 elements per chip
+                                # (B1C WB BOC(6,1): 12)
 
 
 class ChannelState(NamedTuple):
@@ -241,6 +262,86 @@ def _epoch_bank(iq, sb_start: int, end_sample, tables, ptables, wrow,
                         out)
 
 
+def _epoch_bank_gather(iq, sb_start: int, end_sample, tables, ptables,
+                       wrow, st: ChannelState, p: TrackParams,
+                       tap_offsets: torch.Tensor):
+    """One epoch for the whole bank on the gather path (``fast_code``
+    False), the counterpart of the reference's ``_epoch_one_channel`` with
+    ``fast_code`` False, as [C, blk] tensor ops: the E/P/L chips of sample
+    n are the elements ``ceil((tcode_n + off)·epc) - 1`` (mod the code's
+    elements) of the row's element table, with ``tcode_n = f32(rem) +
+    n·f32(step)`` in f32.  The reference's XLA program contracts that
+    product and sum into one fused multiply-add (on the CPU its tcode is
+    the once-rounded value in every element), and a tcode rounded twice
+    moves a few indices in ten thousand by one; so the port forms it
+    exactly in f64 (n < 2^17 and the f32 operands make the product and the
+    sum exact there) and rounds once, the same on either device.  The
+    carrier is the reference's n = 256·n_hi + n_lo split in f32.  Then the
+    six sums per bank and ``_close_epoch`` as on the fast path.  tables:
+    [R, E] int8 element tables; ptables: None, [R, Ep] or, for the dual
+    bank, [R, Ep + E2] (bank 2's elements after bank 1's); row c reads
+    table row ``wrow[c]``; tap_offsets: f32 [3] (-spacing, 0, spacing) on
+    the device, made once per superblock."""
+    dev = iq.device
+    blk, epc = p.blk, p.elements_per_chip
+    code_phase_step = st.code_freq / p.fs           # f64 [C]
+    blksize = torch.ceil((p.code_len - st.rem_code_phase)
+                         / code_phase_step).long().clamp(max=blk)
+    # sample windows, offsets clamped as dynamic_slice clamps them
+    off = clamp_offsets(st.abs_sample - sb_start, iq.shape[0] // 2, blk)
+    n_i = torch.arange(blk, device=dev)
+    siq = iq.view(-1, 2)[off[:, None] + n_i].float()
+    mask = (n_i[None, :] < blksize[:, None]).float()
+    # f32(rem) + n·f32(step), exact in f64, rounded once to f32
+    tcode = (st.rem_code_phase.float().double()[:, None]
+             + n_i.double()[None, :]
+             * code_phase_step.float().double()[:, None]).float()
+    # E/P/L chip phases [C, 3, blk], f32(tcode) + f32(-spacing, 0, spacing)
+    taps = tcode[:, None, :] + tap_offsets[None, :, None]
+    rows = wrow[:, None, None]
+
+    def chips(table, per_chip: int, base: int, n_elem: int, shift=0):
+        """[C, 3, blk] E/P/L chips of the elements ``base ..`` of each
+        row's table, ``shift`` [C, 1, 1] elements into them."""
+        idx = torch.ceil(taps * per_chip).long() - 1 + shift
+        return table[rows, base + torch.remainder(idx, n_elem)].float()
+
+    # carrier wipe-off: phase in cycles from n = 256·n_hi + n_lo, so both
+    # products stay small enough for f32
+    inc_c = st.carr_freq / p.fs                     # f64 cycles/sample
+    step_hi = torch.remainder(inc_c * 256.0, 1.0).float()[:, None]
+    step_lo = torch.remainder(inc_c, 1.0).float()[:, None]
+    rem_c = torch.remainder(st.rem_carr_phase / _TWO_PI, 1.0).float()
+    cyc = (rem_c[:, None] + step_hi * (n_i // 256).float()[None, :]
+           + step_lo * (n_i % 256).float()[None, :])
+    phase = (cyc - torch.floor(cyc)) * np.float32(_TWO_PI)
+    cosw, sinw = torch.cos(phase), torch.sin(phase)
+    sig_i, sig_q = siq[..., 0], siq[..., 1]
+    bb = torch.stack([(sig_i * cosw + sig_q * sinw) * mask,
+                      (sig_q * cosw - sig_i * sinw) * mask], dim=2)
+
+    def sums(codes):
+        """Six sums iE qE iP qP iL qL [C] of [C, 3, blk] chips."""
+        return list(torch.bmm(codes, bb).reshape(-1, 6).unbind(1))
+
+    n_elem = p.code_len * epc
+    pilot_sums = []
+    if p.has_pilot:
+        pepc = p.pilot_epc or epc
+        pn_elem = p.code_len * pepc * max(p.pilot_period_mod, 1)
+        # a long pilot (L2C CL) reads the code period of its period counter
+        pshift = (st.pilot_period.long()[:, None, None]
+                  * (p.code_len * pepc) if p.pilot_period_mod > 1 else 0)
+        pilot_sums.append(sums(chips(ptables, pepc, 0, pn_elem, pshift)))
+        if p.has_pilot2:
+            pilot_sums.append(sums(chips(ptables, p.pilot2_epc, pn_elem,
+                                         p.code_len * p.pilot2_epc)))
+    out = pack_sums(sums(chips(tables, epc, 0, n_elem)), pilot_sums,
+                p.pilot_rot, p.pilot2_rot, p.pilot_w1, p.pilot_w2)
+    return _close_epoch(st, p, blksize, code_phase_step,
+                        _TWO_PI * st.carr_freq / p.fs, end_sample, out)
+
+
 def _close_epoch(st: ChannelState, p: TrackParams, blksize,
                  code_phase_step, inc, end_sample, sums):
     """Discriminators, loop filters and state/output packing, all [C]
@@ -347,8 +448,9 @@ def track_superblock(iq: torch.Tensor, sb_start: int, tables: torch.Tensor,
     A record on a card takes one launch of a superblock kernel: the
     windows fetched in the kernel with ``params.fetch_in_kernel``, else
     staged into shared memory (a build or launch failure raises); a record
-    on the CPU takes ``track_superblock_epochs``."""
-    if iq.device.type != "cuda":
+    on the CPU takes ``track_superblock_epochs``, and so does the gather
+    path (``params.fast_code`` False, element tables) on either device."""
+    if iq.device.type != "cuda" or not params.fast_code:
         return track_superblock_epochs(iq, sb_start, tables, pilot_tables,
                                        state, params, n_epochs, end_sample)
     end_sample = _check_superblock(iq, sb_start, pilot_tables, params,
@@ -388,15 +490,23 @@ def track_superblock_epochs(iq: torch.Tensor, sb_start: int,
     result as there), on any device: per epoch the geometry as [C] tensor
     ops, one correlator launch and ``_close_epoch``.  It is the plain
     version the superblock kernels are held against (the staged one with
-    ``params.fetch_in_kernel`` False)."""
+    ``params.fetch_in_kernel`` False).  With ``params.fast_code`` False
+    each epoch is the gather step ``_epoch_bank_gather`` instead, on
+    element tables, and launches no kernel of ops/."""
     end_sample = _check_superblock(iq, sb_start, pilot_tables, params,
                                    end_sample)
     n_ch = state.carr_freq.shape[0]
     wrow = torch.arange(n_ch, device=iq.device) % tables.shape[0]
+    step = _epoch_bank
+    if not params.fast_code:
+        # the E/P/L offsets [chips], sent to the device once per superblock
+        step = functools.partial(_epoch_bank_gather, tap_offsets=torch.tensor(
+            [-params.spacing, 0.0, params.spacing], dtype=torch.float32,
+            device=iq.device))
     o32, o64, oi = [], [], []
     for _ in range(n_epochs):
-        state, (a, b, c) = _epoch_bank(iq, sb_start, end_sample, tables,
-                                       pilot_tables, wrow, state, params)
+        state, (a, b, c) = step(iq, sb_start, end_sample, tables,
+                                pilot_tables, wrow, state, params)
         o32.append(a)
         o64.append(b)
         oi.append(c)
@@ -506,6 +616,34 @@ def build_replica_tables(cfg, sig: SignalDef, params: TrackParams,
     return ctabs, ptabs
 
 
+def build_element_tables(cfg, sig: SignalDef, params: TrackParams,
+                         channels: Sequence) -> tuple:
+    """Chip-grid element tables for the gather path, as the reference
+    builds them: (code_tables int8 [C, code_len·epc], pilot_tables int8
+    [C, Ep], or [C, Ep + E2] for the dual bank with bank 2's elements after
+    bank 1's, or None without a pilot bank)."""
+    ctabs = np.stack([sig.data_code(0 if sig.fdma else int(ch[0]))
+                      for ch in channels])
+    if not params.has_pilot:
+        return ctabs, None
+    if params.has_pilot2:
+        ptabs = np.stack([np.concatenate([sig.pilot_code(int(ch[0])),
+                                          sig.pilot_code_wb(int(ch[0]))])
+                          for ch in channels])
+    else:
+        ptabs = np.stack([sig.pilot_code(int(ch[0])) for ch in channels])
+    return ctabs, ptabs
+
+
+def build_tables(cfg, sig: SignalDef, params: TrackParams,
+                 channels: Sequence, dopplers) -> tuple:
+    """The tables ``params`` tracks on: replica tables on the fast path,
+    element tables on the gather path."""
+    if params.fast_code:
+        return build_replica_tables(cfg, sig, params, channels, dopplers)
+    return build_element_tables(cfg, sig, params, channels)
+
+
 def make_track_params(cfg, sig: SignalDef) -> TrackParams:
     """Loop constants, block geometry and pilot-bank settings for ``sig``
     under ``cfg`` (the reference's derivation)."""
@@ -517,13 +655,16 @@ def make_track_params(cfg, sig: SignalDef) -> TrackParams:
                     cfg.pll_damping_ratio, 0.25, cfg.int_time)
     pf1, pf2, pf3 = calc_loop_coef_carr3(cfg.pll_noise_bandwidth,
                                          cfg.int_time)
+    # the sliced-replica path needs an E-L offset of at least one sample
     k_nominal = cfg.dll_correlator_spacing * cfg.sampling_freq \
         / sig.chip_rate_hz
-    if k_nominal < 0.5:
-        raise NotImplementedError(
-            f"{sig.name}: correlator spacing under half a sample needs the "
-            "per-epoch gather path, not ported yet (ROADMAP.md Queue A "
-            "item 3d)")
+    fast = k_nominal >= 0.5
+    if not fast:
+        warnings.warn(
+            f"{sig.name}: correlator spacing {cfg.dll_correlator_spacing} "
+            f"chips is under half a sample at fs={cfg.sampling_freq:.3e}; "
+            "falling back to the slow per-epoch gather path",
+            stacklevel=2)
     has_pilot = cfg.pilot_trk_flag > 0 and sig.pilot_code is not None
     # data/pilot combining weights: the squared acquisition amplitude
     # weights (B1C 11/40 + 29/40), else 50/50
@@ -535,6 +676,7 @@ def make_track_params(cfg, sig: SignalDef) -> TrackParams:
     dll_wd, dll_wp = wd, wp
     dll_scale = 1.0
     has_pilot2 = False
+    pilot2_epc = 0
     pilot_w1, pilot_w2 = 1.0, 0.0
     pilot_rot = 0 if sig.pilot_in_phase else 1
     if cfg.pilot_trk_flag == 2 and sig.pilot_code_wb is not None:
@@ -548,11 +690,16 @@ def make_track_params(cfg, sig: SignalDef) -> TrackParams:
         dll_wd, dll_wp = factor, 1.0 - factor
         dll_scale = 1.0 - cfg.dll_correlator_spacing
         has_pilot2 = True
+        pilot2_epc = sig.pilot_wb_elements_per_chip
         pilot_w1, pilot_w2 = np.sqrt(29.0 / 33.0), np.sqrt(4.0 / 33.0)
         pilot_rot = 3
     return TrackParams(
         fs=cfg.sampling_freq, code_len=sig.code_length_chips,
+        elements_per_chip=sig.elements_per_chip,
+        code_freq_basis=sig.chip_rate_hz,
         blk=cfg.samples_per_code + cfg.track_block_pad,
+        spacing=cfg.dll_correlator_spacing, fast_code=fast,
+        pilot2_epc=pilot2_epc,
         tau1_code=t1c, tau2_code=t2c, tau1_carr=t1p, tau2_carr=t2p,
         pdi=cfg.int_time, k_spacing=max(int(round(k_nominal)), 1),
         pll_order=cfg.pll_order, pf1=pf1, pf2=pf2, pf3=pf3,
@@ -607,6 +754,18 @@ def stage_superblock(samples_iq: np.ndarray, sb_start: int,
     return buf
 
 
+def superblock_epochs(cfg, sig: SignalDef) -> int:
+    """Epochs in one superblock of ``cfg.superblock_ms`` (at least one)."""
+    return max(int(cfg.superblock_ms / sig.code_period_ms), 1)
+
+
+def superblock_plan(n_epochs: int, per: int) -> list:
+    """Epoch counts of the superblocks that ``n_epochs`` epochs are cut
+    into, ``per`` at a time from the first (the last may hold fewer)."""
+    per = max(int(per), 1)
+    return [min(per, n_epochs - done) for done in range(0, n_epochs, per)]
+
+
 def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
           device, n_epochs: Optional[int] = None) -> TrackResults:
     """Host loop: stage superblocks on ``device``, run the engine,
@@ -626,13 +785,11 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
     max_phase = max(ch[2] for ch in channels)
     if n_epochs is None:
         n_epochs = int((total_samples - max_phase - 2 * spc) // spc)
-    sb_epochs = min(
-        n_epochs, max(int(cfg.superblock_ms / sig.code_period_ms), 1))
+    sb_epochs = min(n_epochs, superblock_epochs(cfg, sig))
 
     # Doppler-aided code rates (tables + state init)
     dopplers0 = code_dopplers(cfg, sig, channels)
-    ctabs, ptabs = build_replica_tables(cfg, sig, params, channels,
-                                        dopplers0)
+    ctabs, ptabs = build_tables(cfg, sig, params, channels, dopplers0)
     tables = torch.from_numpy(ctabs).to(device)
     ptables = None if ptabs is None else torch.from_numpy(ptabs).to(device)
     state = init_channel_state(channels, sig.chip_rate_hz, device,
@@ -699,8 +856,7 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
     pending = None
     drop_mask = None
     buf_len = None
-    while done < n_epochs:
-        cur = min(sb_epochs, n_epochs - done)
+    for cur in superblock_plan(n_epochs, sb_epochs):
         drift = 2 * (done + cur + 3)
         sb_start = max(min_phase0 + done * spc - drift - spc, 0)
         need = (max_phase + (done + cur + 3) * spc + drift

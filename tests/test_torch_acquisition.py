@@ -114,12 +114,20 @@ def test_best_channels_match_reference_and_truth(both):
 
 
 def test_unported_modes_raise():
-    # what is left unported on the receiver's path: the per-epoch gather
-    # path for a correlator spacing under half a sample
-    cfg = t_get_config("gps_l1ca", sampling_freq=2.048e6,
-                       dll_correlator_spacing=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_track_params(cfg, t_get_signal("gps_l1ca"))
+    # nothing on the receiver's path is left unported: a correlator
+    # spacing under half a sample, which raised here until the per-epoch
+    # gather path was ported, now selects that path as the reference does,
+    # with the reference's warning, and no longer raises
+    from cusdr_tpu.tracking.engine import make_track_params as j_params
+    over = dict(sampling_freq=2.048e6, dll_correlator_spacing=0.1)
+    with pytest.warns(UserWarning, match="per-epoch gather path"):
+        got = make_track_params(t_get_config("gps_l1ca", **over),
+                                t_get_signal("gps_l1ca"))
+    with pytest.warns(UserWarning, match="per-epoch gather path"):
+        want = j_params(get_config("gps_l1ca", **over),
+                        get_signal("gps_l1ca"))
+    assert got.fast_code is want.fast_code is False
+    assert (got.spacing, got.elements_per_chip) == (0.1, 1)
 
 
 def _random_search(seed, n_prn, n_comp, noncoh=2, nfft=512):

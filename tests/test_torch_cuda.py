@@ -13,7 +13,11 @@ record that is an int8 one times 64 against the int8 instantiations: sums
 exactly 64 times, everything else equal.  A glo_l1 bank at the preset's 12
 Msps (FDMA carriers up to ±3.94 MHz) through both superblock kernels
 against the eager loop, and the circular-shift acquisition with the CL
-period search on the card against the CPU.
+period search on the card against the CPU.  The gather path's step (no
+kernel of ops/, bds_b1c at 4.096 Msps, NB and WB) on the card against the
+CPU from the same states; ``track_multi`` of two fast banks and a gather
+bank on three streams, each equal to a standalone ``track``; and
+``StageTimer`` holding the card's time.
 
 Every case needs a CUDA card and skips without one.  The file imports no
 jax, so it also runs where jax is absent:
@@ -34,6 +38,7 @@ tolerance above.
 """
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -801,3 +806,131 @@ def test_circshift_acquisition_on_card_matches_cpu(cuda):
                               getattr(host, name)[det]), name
     assert card.pilot_phase[1] == 37 and card.code_phase[1] == 7000
     assert np.allclose(card.peak_metric, host.peak_metric, rtol=1e-3)
+
+
+def _gather_scene(dev_seed=5, ms=300):
+    """bds_b1c at 4.096 Msps (the gather path): four SVs at 47 dB-Hz, their
+    channels at the truth."""
+    from cusdr_tpu_torch.io.synth import SynthSV, quantize_iq_int8, \
+        synthesize_if
+    cfg = get_config("bds_b1c", sampling_freq=4.096e6, if_freq=7000.0)
+    sig = get_signal("bds_b1c")
+    rng = np.random.default_rng(dev_seed)
+    truth = [(19, 5120.0, 150.0), (23, 20011.0, -80.0),
+             (25, 31000.0, 900.0), (30, 777.0, -1500.0)]
+    svs = [SynthSV(prn=p, code_phase=cp, doppler_hz=d, cn0_dbhz=47,
+                   nav_bits=rng.choice(np.asarray([-1, 1], np.int8), 40))
+           for p, cp, d in truth]
+    iq = quantize_iq_int8(synthesize_if(cfg, sig, svs, num_ms=ms, seed=9))
+    return iq, [(p, cfg.if_freq + d, int(cp)) for p, cp, d in truth]
+
+
+@pytest.mark.parametrize("flag", [1, 2])
+def test_gather_step_on_card_matches_cpu(cuda, flag):
+    """The gather step (no kernel of ops/) on the card against the CPU, 30
+    epochs, each from the card's state: block sizes and every integer
+    field equal, the state it started from equal, sums within the
+    kernels' tolerance (cuBLAS against the CPU's batched product, and the
+    card's f32 cos/sin); no correlator kernel launched."""
+    iq, chans = _gather_scene()
+    cfg = get_config("bds_b1c", sampling_freq=4.096e6, if_freq=7000.0,
+                     pilot_trk_flag=flag)
+    sig = get_signal("bds_b1c")
+    with pytest.warns(UserWarning, match="gather path"):
+        params = engine.make_track_params(cfg, sig)
+    dops = engine.code_dopplers(cfg, sig, chans)
+    ct, pt = engine.build_element_tables(cfg, sig, params, chans)
+    tables = {d: (torch.from_numpy(ct).to(d), torch.from_numpy(pt).to(d),
+                  torch.from_numpy(iq).to(d)) for d in ("cpu", cuda)}
+    state = engine.init_channel_state(chans, sig.chip_rate_hz, cuda,
+                                      dopplers=dops,
+                                      carrier_freq_hz=sig.carrier_freq_hz)
+    end = len(iq) // 2
+    corr.reset_launches()
+    for epoch in range(30):
+        t, p, x = tables[cuda]
+        new, got = engine.track_superblock(x, 0, t, p, state, params, 1, end)
+        t, p, x = tables["cpu"]
+        host_state = engine.ChannelState(*(v.cpu() for v in state))
+        _, want = engine.track_superblock(x, 0, t, p, host_state, params, 1,
+                                          end)
+        got = engine.TrackOutputs(*(v.cpu() for v in got))
+        for f in ("abs_sample", "blksize", "carr_freq", "code_freq",
+                  "rem_code_phase", "rem_carr_phase"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (epoch, f)
+        for f in ("i_e", "q_e", "i_p", "q_p", "i_l", "q_l", "pilot_ip",
+                  "pilot_qp"):
+            a, b = getattr(want, f), getattr(got, f)
+            tol = RTOL_SUM * (a.abs().max().item() + 1.0)
+            assert (a - b).abs().max().item() <= tol, (epoch, f)
+        state = new
+    assert not any(LAUNCHES.values())
+
+
+def test_track_multi_streams_equal_standalone_tracks(cuda):
+    """Two fast banks (gps_l1ca 12 channels at 2.048 Msps, gal_e1c 12
+    channels at 4.096 Msps with its pilot) and a gather bank (bds_b1c at
+    4.096 Msps) tracked at once on three streams: each equals a standalone
+    ``track`` with the lock gate off, every field, element for element;
+    one superblock launch per superblock on each fast bank."""
+    from cusdr_tpu_torch.io.synth import SynthSV, quantize_iq_int8, \
+        synthesize_if
+    from cusdr_tpu_torch.tracking.multi import track_multi
+    specs = []
+    for signal, over, prns in (
+            ("gps_l1ca", dict(sampling_freq=2.048e6, if_freq=7000.0),
+             [1, 3, 6, 8, 11, 13, 17, 19, 22, 24, 28, 31]),
+            ("gal_e1c", dict(sampling_freq=4.096e6, if_freq=7000.0),
+             [1, 3, 5, 7, 9, 11, 13, 19, 21, 24, 26, 30])):
+        cfg = get_config(signal, lock_detect=False, superblock_ms=200,
+                         **over)
+        sig = get_signal(signal)
+        rng = np.random.default_rng(len(specs))
+        spc = cfg.samples_per_code
+        svs = [SynthSV(prn=p, code_phase=float(rng.uniform(0, spc - 1)),
+                       doppler_hz=float(d), cn0_dbhz=50)
+               for p, d in zip(prns, np.linspace(-4000, 4000, len(prns)))]
+        iq = quantize_iq_int8(synthesize_if(cfg, sig, svs, num_ms=700,
+                                            seed=1))
+        specs.append((cfg, sig, iq, [(sv.prn, cfg.if_freq + sv.doppler_hz,
+                                      int(round(sv.code_phase)))
+                                     for sv in svs]))
+    iq, chans = _gather_scene(ms=700)
+    cfg = get_config("bds_b1c", sampling_freq=4.096e6, if_freq=7000.0,
+                     lock_detect=False)
+    specs.append((cfg, get_signal("bds_b1c"), iq, chans))
+    corr.reset_launches()
+    with pytest.warns(UserWarning, match="gather path"):
+        multi = track_multi(specs, n_ms=600, device=cuda)
+    launches = dict(LAUNCHES)
+    assert launches["track_superblock"] == 3
+    assert launches["track_superblock_pilot"] == 3
+    assert sum(launches.values()) == 6
+    for spec, got in zip(specs, multi):
+        cfg, sig, iq, chans = spec
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            solo = engine.track(cfg, sig, iq, chans, cuda,
+                                n_epochs=int(600 / sig.code_period_ms))
+        for f in engine.TrackOutputs._fields:
+            assert np.array_equal(getattr(got, f), getattr(solo, f)), \
+                (cfg.signal, f)
+
+
+def test_stage_timer_counts_device_time(cuda):
+    """A stage that queues ~50 ms of card work reads at least that long:
+    the timer synchronises the card at the stage's end."""
+    from cusdr_tpu_torch.runtime.profiling import StageTimer
+    a = torch.randn(4096, 4096, device=cuda)
+    a @ a
+    torch.cuda.synchronize()
+    first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    timer = StageTimer(device=cuda)
+    with timer.stage("matmul"):
+        first.record()
+        for _ in range(40):
+            a = (a @ a) * 1e-3
+        last.record()
+    device_s = first.elapsed_time(last) / 1e3
+    assert device_s > 0.01
+    assert timer.stages["matmul"].seconds >= device_s

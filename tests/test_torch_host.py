@@ -6,9 +6,12 @@ imports jax), so it keeps copies of ``config``, ``constants``, ``signals``,
 of ``runtime``, ``tracking.cno``, ``tracking.loop_filters``,
 ``tracking.qmboc`` and ``acquisition.resample``.  A copy that drifts from
 its original would make the two packages disagree, so every copied file is
-held to its original byte for byte.  The one edited copy,
-``nav/dispatch.py``, differs only inside ``decode_lnav``, where a comment
-says that ``..receiver`` is the port's own module."""
+held to its original byte for byte.  Two copies are edited:
+``nav/dispatch.py`` differs only inside ``decode_lnav``, where a comment
+says that ``..receiver`` is the port's own module, and ``plotting.py``
+(numpy and matplotlib only) only in ``probe_data``'s histogram line, which
+calls ``np.ptp``: the reference's ``ndarray.ptp`` is gone from NumPy 2,
+so the reference's ``probe`` raises there."""
 
 from pathlib import Path
 
@@ -18,12 +21,12 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 COPIED_DIRS = ("signals", "io", "nav", "pvt", "geodesy", "orbits")
-EDITED = {"nav/dispatch.py"}
+EDITED = {"nav/dispatch.py", "plotting.py"}
 SUFFIXES = {".py", ".npz", ".c"}
 
 
 def _copied_files():
-    rels = ["config.py", "constants.py", "tracking/cno.py",
+    rels = ["config.py", "constants.py", "plotting.py", "tracking/cno.py",
             "tracking/loop_filters.py", "tracking/qmboc.py",
             "acquisition/resample.py", "runtime/__init__.py",
             "runtime/native.c", "runtime/Makefile"]
@@ -76,6 +79,49 @@ def test_edited_copy_differs_only_in_decode_lnav():
     code = lambda t: [l for l in t.splitlines()
                       if not l.strip().startswith("#")]
     assert code(got) == code(ref)
+
+
+def test_plotting_copy_differs_only_in_ptp():
+    ref = (ROOT / "cusdr_tpu" / "plotting.py").read_text().splitlines()
+    got = (ROOT / "cusdr_tpu_torch" / "plotting.py").read_text().splitlines()
+    assert len(got) == len(ref)
+    diff = [(a, b) for a, b in zip(ref, got) if a != b]
+    assert diff == [(
+        "    ax.hist(x.real, bins=np.arange(-130, 131) if x.real.ptp() > 20",
+        "    ax.hist(x.real, bins=np.arange(-130, 131) if np.ptp(x.real) > 20",
+    )]
+
+
+def test_plotting_copy_draws_every_figure(tmp_path):
+    """The port's plotting module on a small tracking and navigation
+    result: every figure renders, and ``probe_data`` (which the
+    reference's ``ndarray.ptp`` breaks under NumPy 2) too."""
+    import types
+    import numpy as np
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch import plotting
+    cfg = get_config("gps_l1ca", sampling_freq=2.048e6)
+    rng = np.random.default_rng(0)
+    iq = (rng.integers(-30, 30, 40000)
+          + 1j * rng.integers(-30, 30, 40000)).astype(np.complex64)
+    acq = types.SimpleNamespace(prns=np.arange(1, 5),
+                                detected=np.array([1, 0, 1, 0], bool),
+                                peak_metric=np.array([5.0, 1.0, 4.0, 1.2]))
+    n = 60
+    trk = types.SimpleNamespace(
+        prns=[1, 3], cno={0: np.full(3, 45.0), 1: np.full(3, 44.0)},
+        **{f: rng.normal(size=(2, n)) for f in (
+            "i_p", "q_p", "i_e", "q_e", "i_l", "q_l", "pll_discr",
+            "dll_discr")})
+    nav = types.SimpleNamespace(
+        E=rng.normal(size=8), N=rng.normal(size=8), U=rng.normal(size=8),
+        az=rng.uniform(0, 360, (8, 2)), el=rng.uniform(10, 80, (8, 2)))
+    figs = [plotting.probe_data(iq, cfg), plotting.plot_acquisition(acq),
+            plotting.plot_tracking(trk, 1, cfg),
+            plotting.plot_navigation(nav), plotting.sky_plot(nav, trk.prns)]
+    for k, fig in enumerate(figs):
+        fig.savefig(tmp_path / f"{k}.png", dpi=40)
+        assert (tmp_path / f"{k}.png").read_bytes()[:4] == b"\x89PNG"
 
 
 def test_port_modules_live_in_the_port():

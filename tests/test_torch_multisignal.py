@@ -12,13 +12,15 @@ reference test demands, and its prompt sums are within 2e-4·(max + 1) of
 the reference's (the f32 sums are added in other orders; the loops are
 the same f64 arithmetic), ``abs_sample`` equal.
 
-One preset's scene is beyond the port's tracking engine: bds_b1c at 4.096
-Msps puts the 0.06-chip correlator spacing at 0.24 samples, under half a
-sample, where the reference falls back to its per-epoch gather path; the
-port has not ported that path (ROADMAP.md Queue A item 3d), so its
-tracking raises ``NotImplementedError`` there, and the test holds it to
-that.  B1C tracking through the port is the wideband case below (16.384
-Msps, one-sample spacing) and tests/test_torch_pilot_correlator.py.
+One preset's scene takes the per-epoch gather path: bds_b1c at 4.096 Msps
+puts the 0.06-chip correlator spacing at 0.24 samples, under half a
+sample.  There the chips of every sample are gathered by an f32
+ceil-index, and the loops carry the last-bit differences of each step's
+sums into the next epoch's state until the two packages' f32 index grids
+part and some samples' chips flip.  That case is held by
+tests/test_torch_gather.py's closed-loop comparison
+(``assert_loop_close``: every data and pilot sum, the frequencies, and
+the step tolerances until the grids part), ``abs_sample`` equal.
 """
 
 import numpy as np
@@ -36,6 +38,7 @@ from cusdr_tpu_torch.signals.defs import get_signal as t_get_signal
 from cusdr_tpu_torch.tracking.engine import track as t_track
 
 from test_multisignal import CASES, _setup
+from test_torch_gather import assert_loop_close
 from test_torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 SUM_RTOL = 2e-4
@@ -70,13 +73,10 @@ def scene_fixture(request):
         i = list(ref.prns).index(sv.prn)
         channels.append((sv.prn, float(ref.carr_freq[i]),
                          int(ref.code_phase[i])))
-    ref_trk = port_trk = None
-    if not _gather_path(tcfg, tsig):
-        ref_trk = j_track(cfg, sig, iq, channels, n_epochs=case["epochs"])
-        port_trk = t_track(tcfg, tsig, iq, channels, "cpu",
-                           n_epochs=case["epochs"])
-    return (name, tcfg, tsig, case, svs, ref, port, ref_trk,
-            (port_trk, iq, channels))
+    ref_trk = j_track(cfg, sig, iq, channels, n_epochs=case["epochs"])
+    port_trk = t_track(tcfg, tsig, iq, channels, "cpu",
+                       n_epochs=case["epochs"])
+    return (name, tcfg, tsig, case, svs, ref, port, ref_trk, port_trk)
 
 
 def _gather_path(cfg, sig):
@@ -124,16 +124,15 @@ def test_fine_frequency(scene):
 
 
 def test_tracking_locks(scene):
-    name, cfg, sig, case, svs, ref, port, ref_trk, tracked = scene
-    port_trk, iq, channels = tracked
-    if _gather_path(cfg, sig):
-        assert name == "bds_b1c"
-        with pytest.raises(NotImplementedError, match="gather path"):
-            t_track(cfg, sig, iq, channels, "cpu", n_epochs=case["epochs"])
-        return
+    name, cfg, sig, case, svs, ref, port, ref_trk, port_trk = scene
+    gather = _gather_path(cfg, sig)
+    assert gather == (name == "bds_b1c")
     assert np.array_equal(port_trk.abs_sample, ref_trk.abs_sample), name
-    scale = np.abs(ref_trk.i_p).max() + 1.0
-    assert np.abs(port_trk.i_p - ref_trk.i_p).max() <= SUM_RTOL * scale
+    if gather:
+        assert_loop_close(port_trk, ref_trk, cfg.sampling_freq)
+    else:
+        scale = np.abs(ref_trk.i_p).max() + 1.0
+        assert np.abs(port_trk.i_p - ref_trk.i_p).max() <= SUM_RTOL * scale
     tail = case["epochs"] // 2
     for c, sv in enumerate(svs):
         ip = np.abs(port_trk.i_p[c, -tail:]).mean()

@@ -39,9 +39,11 @@ def test_host_layers_and_port_modules_import_without_jax():
                 "runtime"]
         port = os.path.join(os.getcwd(), "cusdr_tpu_torch") + os.sep
         for m in mods + ["receiver", "__main__", "tracking.engine",
-                         "tracking.qmboc", "acquisition.pcps",
-                         "ops.correlator", "parallel.timeblocks",
-                         "runtime.profiling", "tools.perf_correlator"]:
+                         "tracking.qmboc", "tracking.multi",
+                         "acquisition.pcps", "ops.correlator",
+                         "parallel.timeblocks", "runtime.profiling",
+                         "tools.perf_correlator", "checkpoint",
+                         "plotting"]:
             mod = importlib.import_module("cusdr_tpu_torch." + m)
             assert mod.__file__.startswith(port), mod.__file__
         assert sys.modules["jax"] is None
@@ -85,7 +87,8 @@ def test_acquisition_and_tracking_pass_without_jax():
 def test_cpu_smoke_runs_without_the_reference_package(tmp_path):
     """A copy of the tree with no ``cusdr_tpu/`` directory: the port's
     modules import and a short ``track_superblock`` (and a two-block
-    time-parallel pass) run on the CPU."""
+    time-parallel pass, and ``track_multi`` of the bank beside itself) run
+    on the CPU."""
     import shutil
     shutil.copytree(ROOT / "cusdr_tpu_torch", tmp_path / "cusdr_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__", "build",
@@ -122,6 +125,11 @@ def test_cpu_smoke_runs_without_the_reference_package(tmp_path):
         i_p = outs.i_p[-20:, 0].abs().mean()
         q_p = outs.q_p[-20:, 0].abs().mean()
         res = track_time_parallel(cfg, sig, iq, chans, 80, 2, device="cpu")
+        from cusdr_tpu_torch.tracking.multi import track_multi
+        two = track_multi([(cfg, sig, iq, chans)] * 2, n_ms=40,
+                          device="cpu")
+        assert (two[0].i_p == two[1].i_p).all()
+        assert (two[0].i_p == outs.i_p.numpy().T).all()
         assert sys.modules["jax"] is None
         assert not any(k == "cusdr_tpu" or k.startswith("cusdr_tpu.")
                        for k in sys.modules)
@@ -148,7 +156,12 @@ def test_cli_runs_without_jax(tmp_path):
     assert "gps_l1ca" in out
     out = _run(cli, "run", "--signal", "gps_l1ca", "--file", str(f),
                "--fs", "2.048e6", "--if-freq", "7000", "--prns", "4,5,6",
-               "--ms", "250", "--device", "cpu")
+               "--ms", "250", "--device", "cpu", "--out",
+               str(tmp_path / "out"))
     assert "acquisition: 1 channels (PRN 5)" in out
     assert "tracking:" in out
     assert np.isfinite(float(out.split("tracking: ")[1].split()[0]))
+    # its checkpoints and plots
+    for name in ("acqResults.npz", "trkResults.npz", "acquisition.png",
+                 "tracking_ch0.png"):
+        assert (tmp_path / "out" / name).is_file(), name
