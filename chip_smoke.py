@@ -24,7 +24,13 @@ Phases, each of which fails the run when it fails:
    modes), the phase-ramp and the table carrier (12 and 96 x 18 008), and
    the 500-epoch loops of cusdr_tpu_torch/tools/perf_correlator.py; the
    int16 instantiations of the fetch and the staged-window kernel on an
-   int16 record (12 x 18 008);
+   int16 record (12 x 18 008).  The phase-ramp kernel (a thread-block
+   cluster per row) also at each cluster size and in smaller tiles, on
+   ragged rows whose replica windows start off the 16-byte grid, two
+   launches equal bit for bit, timed by CUDA events over back-to-back
+   launches (a CUDA graph) beside the launch floor (a one-element fill),
+   ``correlate_windows`` (one block per row) on the same windows and the
+   bound, and its cos/sin held to the plain version's sample by sample;
 3d. the per-epoch profile of the eager loop ``track_superblock_epochs``
    (launches, wall, device and correlator time, idle share) and the
    per-superblock profile of ``track_superblock`` on the superblock kernel
@@ -168,7 +174,7 @@ KERNELS = {
         "correlate_windows_kernel"),
     "correlate_windows_ramp": (
         _CSRC + "correlator_staged.cu", "tools/perf_pallas.py:30",
-        "correlate_windows_ramp_kernel"),
+        "correlate_windows_ramp_cluster_kernel"),
     "correlate_windows_table": (
         _CSRC + "correlator_staged.cu", "tools/perf_pallas.py:208",
         "correlate_windows_table_kernel"),
@@ -229,6 +235,12 @@ SHAPES = (
     ("correlate_windows[int16]", "gps_l1ca int16", 12, 18008, 9),
 )
 INT16_SCALE = 64       # an int16 record made from an int8 one, times 64
+# phase 3c: a shared-memory budget that splits the ramp kernel's slice
+# into tiles through its ring of two stages at every cluster size (3 tiles
+# a block at 12 x 18 008 with 8 blocks a row), held to the plain version
+# and timed beside its plan; and launches per CUDA graph when timing it
+RAMP_RING_BYTES = 8 * 1024
+N_GRAPH = 200
 
 
 def log(msg: str) -> None:
@@ -332,35 +344,39 @@ def _bank_inputs(rng, n_ch, blk, k, n_pilots):
     return args, kw, inc
 
 
-def bound(name, n_ch, blk, k, n_valid, interp):
+def bound(name, blk, k, valid, interp):
     """The least time the card could take for one call: the larger of the
     bytes the function must move over the card's memory rate and its f32
     operations over the card's f32 peak.
 
-    Bytes, each input read once and the output written once: 2 per sample
-    (4 for an int16 record) of every row's sample window, 1 per replica window element (blk + 2k +
-    1 per row and bank), the per-row scalars (8 per int64, 4 per f32), 8
-    per sample of the table carrier's f32 basis tables, and 32 or 64 per
-    output row.  Operations, per valid sample of this call's inputs
-    (``n_valid`` = the rows' bsz summed): 6 to make the carrier (u.v: a
-    complex product; ramp: two products, two sums, a floor and a sincos
-    counted as one each; table: a complex product), 6 to wipe it off, and
-    per replica bank 12 for the six products and sums plus 9 for three
-    interpolated taps; u.v adds 4 per carrier factor (blk / 128 + 128 per
-    row).  Returns (milliseconds, "bytes" or "operations", bytes, ops)."""
+    ``valid`` holds each row's valid samples in this call's inputs (its bsz
+    clamped to [0, blk]); a row of v valid samples needs v of its samples
+    and v + 2k + 1 bytes of each replica window (none when v is 0).
+    Bytes, each input read once and the output written once: 2 per valid
+    sample (4 for an int16 record), 1 per replica window element, the
+    per-row scalars (8 per int64, 4 per f32), 8 per valid sample of the
+    table carrier's f32 basis tables, and 32 or 64 per output row.
+    Operations, per valid sample: 6 to make the carrier (u.v: a complex
+    product; ramp: two products, two sums, a floor and a sincos counted as
+    one each; table: a complex product), 6 to wipe it off, and per replica
+    bank 12 for the six products and sums plus 9 for three interpolated
+    taps; u.v adds 4 per carrier factor (blk / 128 + 128 per row).  Returns
+    (milliseconds, "bytes" or "operations", bytes, ops)."""
     n_pilots = 2 if "dual" in name else 1 if "pilot" in name else 0
     banks = 1 + n_pilots
-    win = blk + 2 * k + 1
+    n_ch = len(valid)
+    n_valid = sum(valid)
     staged = name.startswith("correlate_windows")
     # fetch kernel: off, wrow, start, bsz + alpha, remc, shi, slo (+ pstart,
     # palpha); staged: bsz + four f32 (+ palpha); table: bsz + three f32
     scalars = ((8 + 16 + (4 if n_pilots else 0)) if staged
                else (32 + 16 + (12 if n_pilots else 0)))
-    n_bytes = n_ch * (_sample_bytes(name) * blk + banks * win + scalars
-                      + (64 if n_pilots else 32))
+    n_bytes = (_sample_bytes(name) * n_valid
+               + banks * sum(v + 2 * k + 1 for v in valid if v > 0)
+               + n_ch * (scalars + (64 if n_pilots else 32)))
     ops = n_valid * (12 + banks * (12 + (9 if interp else 0)))
     if name.endswith("_table"):
-        n_bytes += n_ch * blk * 8 - n_ch * 4
+        n_bytes += n_valid * 8 - n_ch * 4
     elif not name.endswith("_ramp"):
         ops += n_ch * 4 * ((blk + 127) // 128 + 128)
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
@@ -429,7 +445,7 @@ def kernel_check(name, label, n_ch, blk, k, seed=0):
         # the int16 instantiation on the same record times 64
         args = (args[0].to(torch.int16) * INT16_SCALE,) + args[1:]
     call, call_plain = _kernel_calls(name, args, kw, inc)
-    n_valid = int(args[9].clamp(0, blk).sum().item())
+    valid = args[9].clamp(0, blk).tolist()
     n_out = 16 if n_pilots else 8
     both = not name.endswith(("_ramp", "_table"))
     rows = {}
@@ -458,7 +474,7 @@ def kernel_check(name, label, n_ch, blk, k, seed=0):
         # kernel, kernel, plain on the same card
         p1, k1, k2, p2 = (_timed(f, N_TIMED)
                           for f in (plain, kern, kern, plain))
-        b_ms, b_by, n_bytes, ops = bound(name, n_ch, blk, k, n_valid, interp)
+        b_ms, b_by, n_bytes, ops = bound(name, blk, k, valid, interp)
         row = dict(err=err, tol=tol, wrapper_ms=(k1 + k2) / 2,
                    plain_wrapper_ms=(p1 + p2) / 2,
                    device_ms=_device_ms(kern, KERNELS[name][2]),
@@ -476,6 +492,176 @@ def kernel_check(name, label, n_ch, blk, k, seed=0):
             f"{k2:.4f}), plain {row['plain_wrapper_ms']:.4f} ms "
             f"({p1:.4f}, {p2:.4f})")
     return dict(name=name, label=label, n_ch=n_ch, blk=blk, k=k, rows=rows)
+
+
+def _graph_ms(fn, n=N_GRAPH, repeats=3):
+    """Device milliseconds per call of ``fn`` run back to back: ``n`` calls
+    captured in one CUDA graph, which is replayed after a warm-up between
+    two CUDA events, ``repeats`` times.  A wrapper's host work (tens of
+    microseconds a call) is paid once, at the capture, so a launch of a few
+    microseconds is timed by the card, not by the host.  Returns the
+    replays' times per call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
+    return times
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def ramp_layout(label, n_ch, blk, k, seed=0):
+    """The ramp kernel (a thread-block cluster per row) at its plan, at
+    each cluster size of ``corr.RAMP_CLUSTERS``, and at each cluster size
+    in the smaller tiles of RAMP_RING_BYTES (a ring of two stages), on
+    ragged rows (bsz 0 on row 1, past blk on row 2, blk / 3 on row 3; the
+    replica rows, blk + 2k + 1 bytes apart, start off the 16-byte grid):
+    against its plain version, two launches equal bit for bit, and its
+    device time by CUDA events over back-to-back launches (``_graph_ms``).
+    In the same way, the launch floor (a one-element fill) and
+    ``correlate_windows`` (#2, one block per row) on the same windows; the
+    bound from this call's inputs; the carrier alone (``ramp_carrier``).
+    Raises on any difference.  Returns the numbers."""
+    import numpy as np
+    import torch
+    from cusdr_tpu_torch.ops import correlator as corr
+    rng = np.random.default_rng(seed)
+    args, kw, inc = _bank_inputs(rng, n_ch, blk, k, 0)
+    iq, off, table, wrow, start, alpha, remc, shi128, slo, bsz = args
+    siq, wt, _ = corr.stage_windows(iq, off, table, wrow, start, k=k,
+                                    blk=blk)
+    bsz = bsz.clone()
+    bsz[1], bsz[2], bsz[3] = 0, blk + 100, blk // 3
+    shi = torch.as_tensor(np.mod(inc * 256, 1.0), dtype=torch.float32,
+                          device=iq.device)
+    scal = (siq, wt, alpha, remc, shi, slo, bsz)
+    want = corr.correlate_windows_ramp_plain(*scal, k=k)
+    tol = KERNEL_RTOL * (want.abs().max().item() + 1.0)
+    plan = corr.ramp_plan(n_ch, blk, k)
+    # the plan, each cluster size, and each in more, smaller tiles through
+    # the ring of two stages; a layout reached twice is run once
+    plans = {"plan": plan}
+    for s in corr.RAMP_CLUSTERS:
+        for name, p in ((f"cluster {s}", corr.ramp_plan(n_ch, blk, k, s)),
+                        (f"cluster {s}, {RAMP_RING_BYTES // 1024} KB",
+                         corr.ramp_plan(n_ch, blk, k, s,
+                                        smem_bytes=RAMP_RING_BYTES))):
+            if p not in plans.values():
+                plans[name] = p
+    timed = {}
+    for name, p in plans.items():
+        if name == "plan":
+            def launch():
+                return corr.correlate_windows_ramp(*scal, k=k)
+        else:
+            def launch(p=p):
+                return corr._ramp_launch(*scal, k=k, plan=p)
+        got = launch()
+        again = launch()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tag = f"[ramp] {label} {n_ch} x {blk}, {name} {tuple(p)}"
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise AssertionError(f"{tag}: max|kernel-plain| {err} > {tol}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{tag}: two launches differ")
+        if got[1].any() or got[:, 6:].any():
+            raise AssertionError(f"{tag}: a row of 0 samples or a zero "
+                                 "column is not 0")
+        timed[name] = dict(err=err, ms=_graph_ms(launch))
+    x = torch.zeros(1, device=iq.device)
+    floor = _graph_ms(lambda: x.fill_(1.0))
+    windows = _graph_ms(lambda: corr.correlate_windows(
+        siq, wt, alpha, remc, shi128, slo, bsz, k=k))
+    plain = _graph_ms(lambda: corr.correlate_windows_ramp_plain(*scal, k=k))
+    b_ms, b_by, b_bytes, b_ops = bound("correlate_windows_ramp", blk, k,
+                                       bsz.clamp(0, blk).tolist(), True)
+    ms = _median(timed["plan"]["ms"])
+    out = dict(
+        ramp_cluster=plan.cluster, ramp_plan=tuple(plan), events_ms=ms,
+        events_ms_repeats=timed["plan"]["ms"],
+        plain_events_ms=_median(plain), floor_ms=_median(floor),
+        windows_ms=_median(windows), ragged_bound_ms=b_ms,
+        ragged_bound_by=b_by, ragged_bytes=b_bytes, ragged_ops=b_ops,
+        ragged_max_abs_err=max(v["err"] for v in timed.values()),
+        ragged_tol=tol,
+        layout_ms={f"{name} {tuple(plans[name])}": _median(v["ms"])
+                   for name, v in timed.items() if name != "plan"},
+        **ramp_carrier(label, n_ch, blk, k, remc, shi, slo))
+    log(f"[ramp] {label} {n_ch} x {blk}, k={k}: kernel {ms:.4f} ms "
+        f"(plan {tuple(plan)}: cluster, chunk, tile, stages, shared "
+        f"bytes; CUDA events over {N_GRAPH} back-to-back launches in a CUDA "
+        f"graph, median of "
+        f"{', '.join(f'{t:.4f}' for t in timed['plan']['ms'])}), "
+        f"launch floor {out['floor_ms']:.4f} ms (a one-element fill), "
+        f"bound {b_ms:.6f} ms by {b_by} ({b_bytes} bytes, {b_ops} "
+        f"operations on these ragged rows), correlate_windows (#2, one block "
+        f"per row) {out['windows_ms']:.4f} ms, plain "
+        f"{out['plain_events_ms']:.4f} ms; max|kernel-plain| "
+        f"{out['ragged_max_abs_err']:.3e} <= {tol:.3e} over every layout "
+        f"(ragged rows, replica rows off the 16-byte grid; two launches "
+        f"equal bit for bit)")
+    log(f"[ramp] {label} {n_ch} x {blk}: ms by layout: " + "; ".join(
+        f"{name}: {t:.4f}" for name, t in out["layout_ms"].items()))
+    return out
+
+
+def ramp_carrier(label, n_ch, blk, k, remc, shi, slo, n_rows=4096,
+                 seed=1):
+    """The ramp kernel's cos and sin, sample by sample, against the plain
+    version's.  Row r carries the phase ramp of bank row r mod n_ch and a
+    single sample 1 + 0j at a random index n_r (every other sample 0), its
+    replica taps all 1: its P sums are then exactly cos and -sin of the
+    carrier at n_r, as the kernel and the plain version compute them (one
+    nonzero product in each sum).  At the wrapper's plan and with a
+    cluster of 8.  Raises above KERNEL_RTOL * 2, the sums' tolerance at
+    max|plain| = 1.  Returns the largest difference."""
+    import numpy as np
+    import torch
+    from cusdr_tpu_torch.ops import correlator as corr
+    rng = np.random.default_rng(seed)
+    dev = remc.device
+    at = torch.as_tensor(rng.integers(0, blk, n_rows), device=dev)
+    rows = torch.arange(n_rows, device=dev)
+    siq = torch.zeros((n_rows, blk, 2), dtype=torch.int8, device=dev)
+    siq[rows, at, 0] = 1
+    wt = torch.ones((n_rows, blk + 2 * k + 1), dtype=torch.int8, device=dev)
+    pick = rows % n_ch
+    scal = (siq, wt, torch.zeros(n_rows, device=dev), remc[pick],
+            shi[pick], slo[pick],
+            torch.full((n_rows,), blk, dtype=torch.int64, device=dev))
+    want = corr.correlate_windows_ramp_plain(*scal, k=k)[:, 2:4]
+    err = 0.0
+    for name, got in (
+            ("plan", corr.correlate_windows_ramp(*scal, k=k)),
+            ("cluster 8", corr._ramp_launch(
+                *scal, k=k, plan=corr.ramp_plan(n_rows, blk, k, 8)))):
+        e = (got[:, 2:4] - want).abs().max().item()
+        if not e <= KERNEL_RTOL * 2:
+            raise AssertionError(f"[ramp] carrier {label}, {name}: "
+                                 f"max|cos, sin kernel - plain| {e}")
+        err = max(err, e)
+    log(f"[ramp] carrier {label}: max|cos, sin kernel - plain| {err:.3e} "
+        f"over {n_rows} samples (one a row at a random index of {blk}, the "
+        f"phase ramps of the {n_ch} rows; the plan and a cluster of 8)")
+    return dict(carrier_max_abs_err=err, carrier_samples=n_rows)
 
 
 def _device_ms(fn, name=None, n=50):
@@ -2206,7 +2392,13 @@ def _kernel_json(name, launches, checks):
     profiler, events = ("torch.profiler device time",
                         "CUDA events per wrapper call")
     ms, plain_ms = first["device_ms"], first["plain_device_ms"]
-    if "cluster" in first:
+    if "events_ms" in first:
+        # the ramp kernel: both by CUDA events over back-to-back launches
+        ms, plain_ms = first["events_ms"], first["plain_events_ms"]
+        ms_from = ("CUDA events over back-to-back launches in a CUDA "
+                   "graph, the plan's cluster size (ragged rows); plain_ms "
+                   "the same way")
+    elif "cluster" in first:
         # the superblock kernel is timed with CUDA events (a trace of
         # launches this few can come back empty); the eager loop by its
         # trace, or by its wall time where that held no device time
@@ -2237,15 +2429,25 @@ def _kernel_json(name, launches, checks):
                        "cluster", "n_diff", "n_diff_one_block",
                        "device_ms_one_block", "slow_epochs",
                        "slow_epochs_one_block", "fetch_ms",
-                       "fetch_ms_one_block") if key in r})
+                       "fetch_ms_one_block", "ramp_cluster", "events_ms",
+                       "events_ms_repeats", "plain_events_ms", "floor_ms",
+                       "windows_ms", "ragged_bound_ms", "ragged_bound_by",
+                       "ragged_bytes", "ragged_ops", "ragged_max_abs_err",
+                       "ragged_tol", "ramp_plan", "layout_ms",
+                       "carrier_max_abs_err", "carrier_samples")
+                      if key in r})
               for c in checks for interp, r in c["rows"].items()]
     source, replaces, _ = KERNELS[name]
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
-        "max_abs_err": max(s["max_abs_err"] for s in shapes),
+        "max_abs_err": max(max(s["max_abs_err"],
+                               s.get("ragged_max_abs_err", 0.0))
+                           for s in shapes),
         "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        # the ramp's ms are taken on phase 3c's ragged rows: so its bound
+        "bound_ms": first.get("ragged_bound_ms", first["bound_ms"]),
+        "bound_by": first.get("ragged_bound_by", first["bound_by"]),
         # no single PyTorch call computes these sums
         "library_ms": None,
         "ms_from": ms_from,
@@ -2287,6 +2489,9 @@ def main() -> int:
         checks = {}
         for shape in SHAPES:
             checks.setdefault(shape[0], []).append(kernel_check(*shape))
+        for c in checks["correlate_windows_ramp"]:
+            c["rows"][True].update(ramp_layout(c["label"], c["n_ch"],
+                                               c["blk"], c["k"]))
         t0 = time.perf_counter()
         scenes = {name: job.result() for name, job in jobs.items()}
         log(f"[scenes] waited {time.perf_counter() - t0:.1f} s for the "

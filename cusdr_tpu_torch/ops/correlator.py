@@ -15,8 +15,9 @@ kernel from the record and the tables at per-row offsets.
 before the launch: ``correlate_windows`` replaces ``correlate_bank``
 (cusdr_tpu/ops/correlator.py:237, ``_build_call``; all three pilot variants,
 both tap modes, u·v carrier), ``correlate_windows_ramp`` replaces
-``make_correlate_kernel`` (tools/perf_pallas.py:30; per-sample phase ramp)
-and ``correlate_windows_table`` replaces ``make_table_carrier_kernel``
+``make_correlate_kernel`` (tools/perf_pallas.py:30; per-sample phase ramp;
+a thread-block cluster per row, laid out by ``ramp_plan``) and
+``correlate_windows_table`` replaces ``make_table_carrier_kernel``
 (tools/perf_pallas.py:208; carrier from cos/sin basis tables).
 
 ``csrc/superblock.cu`` — ``track_superblock_bank`` is the redesign of
@@ -53,10 +54,14 @@ What bounds the kernels on an H100, and what their design does about it:
 per sample the work is an int8 sample read, a few replica reads per bank
 and ~20-45 FLOPs; at the ported paths' 12-96 rows x 18 008-180 008 samples
 per epoch that is a few microseconds of memory or arithmetic time at most.
-They are bound by the launch and by using only one block per row (12-96 of
-132 SMs): the kernels use wide blocks (512 threads), compute the carrier's
-u and v factors once per block in shared memory and touch each sample
-once.  See the sources for the rest.
+The per-epoch kernels are bound by the launch and by using only one block
+per row (12-96 of 132 SMs): they use wide blocks (512 threads), compute the
+carrier's u and v factors once per block in shared memory and touch each
+sample once.  The phase-ramp kernel spreads a row over a cluster of blocks
+(12 rows x 8 blocks), copies each block's slice into shared memory with
+bulk copies and, at 96 rows, is bound by the instructions it issues per
+sample, about half of them the carrier's phase and cos/sin.  See the
+sources for the rest.
 
 The Mosaic-only machinery of the TPU kernels has no counterpart here: the
 record stays interleaved int8 I/Q, windows are read at any int64 offset by
@@ -85,7 +90,9 @@ _TWO_PI = float(np.float32(2.0 * np.pi))
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 # kernel sources by library name; all include correlator_common.cuh, the
-# superblock kernels superblock_common.cuh
+# superblock kernels superblock_common.cuh, the two that copy windows into
+# shared memory themselves (the staged superblock and the phase-ramp
+# kernels) bulk_copy.cuh
 SOURCES = ("correlator", "correlator_staged", "superblock",
            "superblock_staged")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -194,7 +201,8 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
                 p, p, p, p, p, p, p, p, p, p,
                 i32, i32, i32, i64, i32, i32, i32, i32, f32, f32, p],
             "correlate_windows_ramp_launch": [
-                p, p, p, p, p, p, p, p, i32, i32, i32, i64, p],
+                p, p, p, p, p, p, p, p, i32, i32, i32, i64,
+                i32, i32, i32, i32, i32, p],
             "correlate_windows_table_launch": [
                 p, p, p, p, p, p, p, p, p, i32, i32, i32, i64, p]}
     # every launch reading the record has an int16 twin of the same
@@ -642,25 +650,135 @@ def correlate_windows_ramp_plain(siq, wt, alpha, remc, shi, slo, bsz, *,
                      0, 0, 0, 0)
 
 
+class RampPlan(NamedTuple):
+    """How ``correlate_windows_ramp`` lays a call out on the card:
+    ``cluster`` thread blocks per row, block r taking the row's samples
+    [r·chunk, min((r + 1)·chunk, blk)) (``ramp_slices``) in tiles of at
+    most ``tile`` samples through a ring of ``stages`` buffers, with
+    ``smem_bytes`` of shared memory (``ramp_smem_bytes``)."""
+    cluster: int
+    chunk: int
+    tile: int
+    stages: int
+    smem_bytes: int
+
+
+# thread blocks per row the ramp kernel takes (up to the portable cluster)
+RAMP_CLUSTERS = (1, 2, 4, 8)
+# a block's dynamic shared memory, at most: what an H100 block may opt into
+# (227 KB), less the ramp kernel's static arrays and 22 KB of room
+RAMP_SMEM_BYTES = 200 * 1024
+
+
+def ramp_smem_bytes(tile: int, k: int, stages: int) -> int:
+    """Dynamic shared memory of a ramp block (``ramp_smem`` of
+    csrc/correlator_staged.cu): a tile's tile + 2k interpolated taps (f32),
+    then per stage of the ring the 16-byte spans of a tile's replica
+    stretch (tile + 2k + 1 bytes, up to 15 either side, 4 read past) and of
+    its samples (2 bytes each)."""
+    rep = _round_up(tile + 2 * k + 1 + 30 + 4, 16)
+    samp = _round_up(2 * tile + 30, 16)
+    return _round_up(4 * (tile + 2 * k), 16) + stages * (rep + samp)
+
+
+def ramp_plan(n_rows: int, blk: int, k: int, cluster=None, *,
+              smem_bytes: int = RAMP_SMEM_BYTES) -> RampPlan:
+    """Lay ``n_rows`` rows of ``blk`` samples (E-L spacing ``k``) out for
+    the ramp kernel: ``cluster`` blocks per row (one of RAMP_CLUSTERS), by
+    default ``cluster_size(n_rows)``, as many as keep the bank within the
+    card's SMs (fewer when a block would get no sample).  A block walks its
+    slice in the fewest equal tiles that fit ``smem_bytes``: one, or a
+    ring of two stages, the next tile's copies in flight while a tile is
+    summed (each tile costs a pass over its taps and two block barriers,
+    so fewer measured faster: PERF.md).  Raises ValueError on what the
+    kernel cannot take."""
+    if n_rows < 1 or blk < 1 or k < 1:
+        raise ValueError(f"n_rows={n_rows}, blk={blk}, k={k} must be >= 1")
+
+    def chunk_of(size):
+        return -(-blk // size)
+
+    if cluster is None:
+        cluster = cluster_size(n_rows)
+        while cluster > 1 and (cluster - 1) * chunk_of(cluster) >= blk:
+            cluster //= 2
+    elif cluster not in RAMP_CLUSTERS:
+        raise ValueError(f"the ramp kernel takes clusters of "
+                         f"{RAMP_CLUSTERS} blocks, not {cluster}")
+    if smem_bytes > RAMP_SMEM_BYTES:
+        raise ValueError(f"smem_bytes={smem_bytes} exceeds the "
+                         f"{RAMP_SMEM_BYTES} a ramp block may take")
+    chunk = chunk_of(cluster)
+    for n_tiles in range(1, chunk + 1):
+        tile = -(-chunk // n_tiles)
+        stages = min(n_tiles, 2)
+        smem = ramp_smem_bytes(tile, k, stages)
+        if smem <= smem_bytes:
+            return RampPlan(cluster, chunk, tile, stages, smem)
+    raise ValueError(f"k={k}: a tile's 2k + 1 replica taps leave no room "
+                     f"in {smem_bytes} bytes of shared memory")
+
+
+def ramp_slices(plan: RampPlan, blk: int):
+    """The samples [n_begin, n_end) of a row each block of the cluster
+    takes, in rank order (the kernel masks them to the row's bsz)."""
+    return [(min(r * plan.chunk, blk), min((r + 1) * plan.chunk, blk))
+            for r in range(plan.cluster)]
+
+
+def _check_ramp_windows(siq, wt, alpha, remc, shi, slo, bsz, k):
+    """What the ramp kernel cannot take, refused on either device: windows
+    other than contiguous int8 starting on a 16-byte boundary (its bulk
+    copies move aligned 16-byte units).  Returns (C, blk)."""
+    c, blk, _ = _check_windows(
+        siq, wt, k, (("alpha", alpha), ("remc", remc), ("shi", shi),
+                     ("slo", slo)), bsz)
+    _int8_only("correlate_windows_ramp", siq)
+    if not (siq.is_contiguous() and wt.is_contiguous()):
+        raise ValueError("correlate_windows_ramp: samples and replicas must "
+                         "be contiguous")
+    if (siq.data_ptr() | wt.data_ptr()) % _STAGE_ALIGN:
+        raise ValueError("correlate_windows_ramp copies from 16-byte aligned "
+                         "tensors: siq and wt must start on a 16-byte "
+                         "boundary")
+    return c, blk
+
+
 def correlate_windows_ramp(siq, wt, alpha, remc, shi, slo, bsz, *,
                            k: int) -> torch.Tensor:
     """Phase-ramp correlator on staged windows (arguments as
-    ``correlate_windows_ramp_plain``).  CUDA tensors launch the kernel or
-    raise; CPU tensors take the plain version."""
+    ``correlate_windows_ramp_plain``).  CUDA tensors launch the kernel, laid
+    out by ``ramp_plan(C, blk, k)``, or raise; CPU tensors take the plain
+    version.  On either device the wrapper refuses what the kernel cannot
+    take (``_check_ramp_windows``, and a k whose taps leave no room in
+    shared memory)."""
+    c, blk = _check_ramp_windows(siq, wt, alpha, remc, shi, slo, bsz, k)
+    plan = ramp_plan(c, blk, k)
     if not _on_card("correlate_windows_ramp", siq, wt):
         return correlate_windows_ramp_plain(siq, wt, alpha, remc, shi, slo,
                                             bsz, k=k)
-    _int8_only("correlate_windows_ramp", siq)
-    c, blk, win = _check_windows(
-        siq, wt, k, (("alpha", alpha), ("remc", remc), ("shi", shi),
-                     ("slo", slo)), bsz)
+    return _ramp_launch(siq, wt, alpha, remc, shi, slo, bsz, k=k, plan=plan)
+
+
+def _ramp_launch(siq, wt, alpha, remc, shi, slo, bsz, *, k: int,
+                 plan: RampPlan) -> torch.Tensor:
+    """One launch of the ramp kernel laid out by ``plan``, a ``ramp_plan``
+    for these windows (the wrapper's, or another cluster size or budget:
+    the card tests hold every layout to the plain version through here).
+    CUDA tensors only; the launcher refuses a plan that does not cover the
+    row or does not fit its shared memory."""
+    c, blk = _check_ramp_windows(siq, wt, alpha, remc, shi, slo, bsz, k)
+    if not _on_card("correlate_windows_ramp", siq, wt):
+        raise ValueError("the ramp kernel takes CUDA tensors, got "
+                         f"{siq.device}")
     alpha, remc, shi, slo, bsz = (
         x.contiguous() for x in (alpha, remc, shi, slo, bsz))
     out = torch.empty((c, 8), dtype=torch.float32, device=siq.device)
     rc = load_library("correlator_staged").correlate_windows_ramp_launch(
         siq.data_ptr(), wt.data_ptr(), alpha.data_ptr(), remc.data_ptr(),
         shi.data_ptr(), slo.data_ptr(), bsz.data_ptr(), out.data_ptr(), c,
-        blk, int(k), win, torch.cuda.current_stream(siq.device).cuda_stream)
+        blk, int(k), wt.shape[1], *plan,
+        torch.cuda.current_stream(siq.device).cuda_stream)
     _launched("correlate_windows_ramp", rc)
     return out
 

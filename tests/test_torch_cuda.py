@@ -1,7 +1,9 @@
 """The CUDA kernels on a card: each epoch correlator against its plain
 PyTorch version, alone at the ported paths' shapes (no pilot, pilot, dual
 pilot; windows fetched in the kernel or staged; u·v, phase-ramp and table
-carriers); the two superblock kernels (one launch per superblock, windows
+carriers; the phase-ramp kernel, a thread-block cluster per row, also at
+every cluster size on ragged rows, bit for bit across two launches, and
+its wrapper's refusals); the two superblock kernels (one launch per superblock, windows
 fetched or staged into shared memory) against their plain version, the
 eager epoch loop, at the gps_l1ca, gal_e5a and bds_b1c WB shapes (the staged
 one also at gps_l2c CL's); and ``track_superblock`` on the card against the
@@ -391,6 +393,127 @@ def test_ramp_and_table_kernels_match_plain_version(cuda, n_ch):
     before["correlate_windows_ramp"] += 1
     before["correlate_windows_table"] += 1
     assert LAUNCHES == before
+
+
+def _ramp_case(cuda, n_ch, blk, k=9):
+    """Staged windows at ``n_ch`` x ``blk`` with ragged rows (bsz 0 on row
+    1, past blk on row 2, blk / 3 on row 3) and the ramp's phase steps."""
+    iq, off, table, wrow, start, alpha, remc, _, _, bsz = _bank_args(
+        cuda, n_ch=n_ch, blk=blk, k=k)
+    siq, wt, _ = corr.stage_windows(iq, off, table, wrow, start, k=k,
+                                    blk=blk)
+    bsz[1], bsz[2], bsz[3] = 0, blk + 100, blk // 3
+    inc = (20e3 + np.linspace(-7e3, 7e3, n_ch)) / 18e6
+    f32 = dict(dtype=torch.float32, device=cuda)
+    shi = torch.as_tensor(np.mod(256 * inc, 1.0), **f32)
+    slo = torch.as_tensor(np.mod(inc, 1.0), **f32)
+    return siq, wt, alpha, remc, shi, slo, bsz
+
+
+def _ramp_call(plan, k=9):
+    """The wrapper (its own plan) when ``plan`` is None, else one launch at
+    ``plan``."""
+    if plan is None:
+        return lambda *args: corr.correlate_windows_ramp(*args, k=k)
+    return lambda *args: corr._ramp_launch(*args, k=k, plan=plan)
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("n_ch,blk", [(12, 18008), (96, 18008), (12, 18011)])
+def test_ramp_cluster_kernel_matches_plain_version(cuda, n_ch, blk, cluster):
+    """The ramp kernel, a cluster of blocks per row (the wrapper's plan, or
+    each size forced), against its plain version on ragged rows (bsz below
+    blk, 0 on one row, past blk on another).  The replica rows are blk + 19
+    bytes apart and, at blk = 18 011, the sample rows 36 022, so rows start
+    off the 16-byte grid the bulk copies move, and the tensors' last bytes
+    are no whole 16-byte unit.  Two launches on the same inputs give the
+    same bits; each call counts one launch."""
+    args = _ramp_case(cuda, n_ch, blk)
+    assert args[1].shape[1] % 16
+    call = _ramp_call(None if cluster is None
+                      else corr.ramp_plan(n_ch, blk, 9, cluster))
+    before = LAUNCHES["correlate_windows_ramp"]
+    got = call(*args)
+    again = call(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["correlate_windows_ramp"] == before + 2
+    assert torch.equal(got, again)
+    want = corr.correlate_windows_ramp_plain(*args, k=9)
+    _close(got, want, 8)
+    assert not got[1].any() and not got[:, 6:].any()
+
+
+def test_ramp_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    """Windows off a 16-byte boundary (the bulk copies move aligned
+    units), int16 samples, a layout whose slices do not cover the row:
+    each refused, and no launch counted."""
+    iq, off, table, wrow, start, alpha, remc, shi, slo, bsz = _bank_args(
+        cuda)
+    siq, wt, _ = corr.stage_windows(iq, off, table, wrow, start, k=9,
+                                    blk=18008)
+    buf = torch.zeros(wt.numel() + 16, dtype=torch.int8, device=cuda)
+    shifted = buf[3:3 + wt.numel()].view(wt.shape)
+    scal = (alpha, remc, shi, slo, bsz)
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        corr.correlate_windows_ramp(siq, shifted, *scal, k=9)
+    with pytest.raises(ValueError, match="int8"):
+        corr.correlate_windows_ramp(siq.to(torch.int16), wt, *scal, k=9)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        corr._ramp_launch(siq, wt, *scal, k=9,
+                          plan=corr.ramp_plan(12, 9000, 9))
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("n_ch,smem_bytes,cluster",
+                         [(96, 40 * 1024, 1), (96, 96 * 1024, 1),
+                          (12, 8 * 1024, 8), (12, 8 * 1024, 2)])
+def test_ramp_kernel_through_a_ring_of_tiles(cuda, n_ch, smem_bytes,
+                                             cluster):
+    """Each block's slice walked in several tiles through the ring of two
+    stages (bulk copies of the next tile in flight while one is summed,
+    each stage reused), with one block a row and with a cluster, on ragged
+    rows, against the plain version and the wrapper's one-tile plan."""
+    args = _ramp_case(cuda, n_ch, 18008)
+    plan = corr.ramp_plan(n_ch, 18008, 9, cluster, smem_bytes=smem_bytes)
+    assert plan.stages == 2 and plan.tile < plan.chunk
+    got = _ramp_call(plan)(*args)
+    again = _ramp_call(plan)(*args)
+    one = corr.correlate_windows_ramp(*args, k=9)
+    want = corr.correlate_windows_ramp_plain(*args, k=9)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, want, 8)
+    _close(one, want, 8)
+
+
+@pytest.mark.parametrize("cluster", [None, 8])
+def test_ramp_kernel_carrier_is_the_plain_versions(cuda, cluster):
+    """The kernel's cos and sin of its phase ramp, sample by sample: each
+    row holds one sample 1 + 0j at its own index, its replica taps are all
+    1, so its P sums are exactly the carrier's cos and -sin there, as the
+    kernel and the plain version compute them.  Held to 2e-6, far inside
+    the sums' tolerance."""
+    n_rows, blk, k = 2048, 18008, 9
+    rng = np.random.default_rng(5)
+    at = torch.as_tensor(rng.integers(0, blk, n_rows), device=cuda)
+    rows = torch.arange(n_rows, device=cuda)
+    siq = torch.zeros((n_rows, blk, 2), dtype=torch.int8, device=cuda)
+    siq[rows, at, 0] = 1
+    wt = torch.ones((n_rows, blk + 2 * k + 1), dtype=torch.int8, device=cuda)
+    inc = (20e3 + rng.uniform(-7e3, 7e3, n_rows)) / 18e6
+    f32 = dict(dtype=torch.float32, device=cuda)
+    args = (siq, wt, torch.zeros(n_rows, **f32),
+            torch.as_tensor(rng.uniform(0, 1, n_rows), **f32),
+            torch.as_tensor(np.mod(256 * inc, 1.0), **f32),
+            torch.as_tensor(np.mod(inc, 1.0), **f32),
+            torch.full((n_rows,), blk, dtype=torch.int64, device=cuda))
+    call = _ramp_call(None if cluster is None
+                      else corr.ramp_plan(n_rows, blk, k, cluster))
+    got = call(*args)[:, 2:4]
+    want = corr.correlate_windows_ramp_plain(*args, k=k)[:, 2:4]
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2e-6
 
 
 def test_window_wrapper_rejects_what_the_kernel_cannot_take(cuda):
