@@ -128,14 +128,33 @@ Phases, each of which fails the run when it fails:
    and fixes equal to ``Receiver(cfg).run()`` on the same file), the same
    with ``--skip-acquisition D/acqResults.npz`` (equal tracking outputs),
    and ``run-multi`` on 1.3 s cut from the records of phases 4 and 6 at
-   their presets.
+   their presets;
+17. multi-device on the one card, every mesh entry cuda:0 (cusdr_tpu_torch/
+   parallel/): (a) one 250-epoch superblock of phase 4's record from the
+   SVs' truth through ``tracking_step_sharded`` on a 2-entry 'ch' mesh (two
+   6-row banks, one superblock-kernel launch each) against
+   ``track_superblock`` on the whole 12-row bank and against the eager
+   loop on each shard, within phase 3e's tolerances, and the card time of
+   the two shard launches beside the whole bank's one; (b) the preset's 32 PRN x 29 bin x 20 ms search on that
+   record through ``pcps_sharded`` on 2 shards against the unsharded
+   search (bins and code phases equal, peaks rtol 1e-5, every SV detected
+   at its code phase); (c) ``track_time_parallel`` with ``time_blocks=8``
+   over a 1x2 ch x tb mesh (48 rows a shard, shards x passes launches)
+   against the flat bank and against the eager loop on the same mesh
+   (per-row ends, a cluster of 2 blocks a row) in the same call, every
+   block's tail locked;
+   (d) two spawned ranks (gloo, both on cuda:0) over a 2x1 ch x tb mesh:
+   each rank's stitched result equal to (c)'s within the same tolerances,
+   the two ranks' equal.
 
 The scenes of phases 3e-15 are made in ten worker processes while the
 kernel checks of phases 1-3c run, and are all finished before the
 host-bound measurements (the 500-epoch loops, phase 3d) and phase 4
 start.
 
-Prints a JSON line with each kernel's numbers (launches on its path, error
+Prints a JSON line with each kernel's numbers (launches on its path, and
+for the superblock kernel also on the other paths, phase 17's mesh among
+them; error
 against the plain version, device time, the plain version's, the card's
 bound for the same work), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card, and
@@ -796,41 +815,69 @@ def superblock_bound(n_pilots, interp, blk, n_rows, n_epochs, table_bytes,
             else "operations", n_bytes, ops)
 
 
+def _track_arrays(track):
+    """{"kind.field": numpy array} of a superblock's (state, outputs) pair
+    of tensors, or of a stitched TrackResults (its outputs, active_until
+    and status)."""
+    import numpy as np
+    from cusdr_tpu_torch.tracking.engine import TrackOutputs
+    if isinstance(track, tuple):
+        return {f"{kind}.{name}": v.cpu().numpy()
+                for kind, part in zip(("state", "out"), track)
+                for name, v in zip(part._fields, part)}
+    return {f"out.{name}": np.asarray(getattr(track, name))
+            for name in TrackOutputs._fields + ("active_until", "status")}
+
+
 def _compare_tracks(got, want):
-    """Field by field, the (state, outputs) of a superblock from the kernel
-    against the eager loop's.  Returns (differing elements, largest
-    |difference| over the f32 outputs, {field: largest |difference|} of the
-    fields that differ, the fields beyond their tolerance)."""
-    import torch
+    """Field by field, a superblock's (state, outputs) from the kernel
+    against the eager loop's, or two stitched TrackResults: integer
+    fields and the status equal, f32 sums within TRACK_RTOL·(max + 1),
+    frequencies within FREQ_ATOL, the other f64 fields within STATE_RTOL /
+    STATE_ATOL.  Returns (differing elements, largest |difference| over
+    the f32 outputs, {field: largest |difference|} of the fields that
+    differ, the fields beyond their tolerance)."""
+    import numpy as np
+    got, want = _track_arrays(got), _track_arrays(want)
     n_diff, err32, worst, beyond = 0, 0.0, {}, []
-    for kind, g_all, w_all in (("state", got[0], want[0]),
-                               ("out", got[1], want[1])):
-        for name, g, w in zip(g_all._fields, g_all, w_all):
-            if g.shape != w.shape or g.dtype != w.dtype:
-                raise AssertionError(f"{kind}.{name}: {g.dtype} "
-                                     f"{tuple(g.shape)} against {w.dtype} "
-                                     f"{tuple(w.shape)}")
-            if g.is_floating_point() and not torch.isfinite(g).all():
-                raise AssertionError(f"{kind}.{name}: not finite")
-            differ = int((g != w).sum().item())
-            if not differ:
-                continue
-            n_diff += differ
-            d = (g.double() - w.double()).abs()
-            worst[f"{kind}.{name}"] = d.max().item()
-            if g.dtype == torch.float32:
-                err32 = max(err32, d.max().item())
-                ok = d.max().item() <= TRACK_RTOL * (w.abs().max().item()
-                                                     + 1.0)
-            elif name in FREQ_FIELDS:
-                ok = d.max().item() <= FREQ_ATOL
-            elif g.dtype == torch.float64:
-                ok = bool((d <= STATE_ATOL + STATE_RTOL * w.abs()).all())
-            else:
-                ok = False
-            if not ok:
-                beyond.append(f"{kind}.{name}")
+    for key, g in got.items():
+        w = want[key]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{key}: {g.dtype} {g.shape} against "
+                                 f"{w.dtype} {w.shape}")
+        if g.dtype.kind == "f" and not np.isfinite(g).all():
+            raise AssertionError(f"{key}: not finite")
+        differ = int((g != w).sum())
+        if not differ:
+            continue
+        n_diff += differ
+        if g.dtype.kind not in "biuf":
+            beyond.append(key)
+            continue
+        d = np.abs(g.astype(np.float64) - w.astype(np.float64))
+        worst[key] = float(d.max())
+        if g.dtype == np.float32:
+            err32 = max(err32, float(d.max()))
+            ok = d.max() <= TRACK_RTOL * (np.abs(w).max() + 1.0)
+        elif key.split(".")[1] in FREQ_FIELDS:
+            ok = d.max() <= FREQ_ATOL
+        elif g.dtype == np.float64:
+            ok = bool((d <= STATE_ATOL + STATE_RTOL * np.abs(w)).all())
+        else:
+            ok = False
+        if not ok:
+            beyond.append(key)
     return n_diff, err32, worst, beyond
+
+
+def _hold_tracks(tag, got, want):
+    """``_compare_tracks`` that raises beyond the tolerances.  Returns
+    (differing elements, largest f32 |difference|)."""
+    n_diff, err32, worst, beyond = _compare_tracks(got, want)
+    if beyond:
+        raise AssertionError(f"[{tag}] beyond the tolerance: {beyond}; "
+                             f"largest differences {worst}")
+    return n_diff, err32
 
 
 def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
@@ -1429,7 +1476,8 @@ def time_parallel_path(card: str, made, seq_res):
         f"{n_short * 1e-3 / staged_s:.3f}x on the staged superblock kernel "
         f"and {n_short * 1e-3 / eager_s:.3f}x on the eager loop "
         f"({n_short} epochs)")
-    return launches["track_superblock"], n_staged, n_windows
+    return (launches["track_superblock"], n_staged, n_windows,
+            rec_s / flat_s)
 
 
 def staged_pilot_path(card, tag, cfg, made, res, variant, epb, tail):
@@ -2384,6 +2432,394 @@ def cli_path(card: str, scenes):
             log(f"[cli]   {line}")
 
 
+# phase 17: multi-device on one card.  The shards of every mesh below are
+# entries of the one card, cuda:0; two ranks there are two CUDA contexts
+# the card time-slices, so phase 17 shows correctness, not scaling.
+MESH_EPOCHS = 250        # (a): one superblock of the main record
+MESH_RANK_TIMEOUT_S = 300
+
+
+def _mesh_step(card, made):
+    """Phase 17 (a): one 250-epoch superblock of the main record from the
+    SVs' truth through ``tracking_step_sharded`` on a 2-entry 'ch' mesh of
+    the card (two 6-row banks, one superblock-kernel launch each) against
+    ``track_superblock`` on the whole 12-row bank, and against the eager
+    loop (``track_superblock_epochs``, the kernel's plain version) on each
+    shard's own rows, tables and state; the kernel takes a cluster of 8
+    blocks a row at 6 and at 12 rows.  The card's time of the two shard
+    launches against the whole bank's one: CUDA events over back-to-back
+    wrapper calls on the packed states, in turns.  Returns the sharded
+    run's launches."""
+    import torch
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.ops.correlator import (LAUNCHES, cluster_size,
+                                                reset_launches,
+                                                track_superblock_bank)
+    from cusdr_tpu_torch.parallel import (make_mesh, shard_channel_bank,
+                                          tracking_step_sharded)
+    from cusdr_tpu_torch.signals.defs import get_signal
+    from cusdr_tpu_torch.tracking.engine import (UP_MARGIN, ChannelState,
+                                                 TrackOutputs, build_tables,
+                                                 code_dopplers,
+                                                 init_channel_state,
+                                                 make_track_params,
+                                                 pack_state,
+                                                 track_superblock,
+                                                 track_superblock_epochs)
+    cfg = get_config("gps_l1ca")
+    sig = get_signal("gps_l1ca")
+    svs, iq, _ = made
+    channels = _truth_channels(cfg, svs)
+    params = make_track_params(cfg, sig)
+    dops = code_dopplers(cfg, sig, channels)
+    ct, pt = build_tables(cfg, sig, params, channels, dops)
+    tables = torch.from_numpy(ct).to("cuda")
+    state = init_channel_state(channels, sig.chip_rate_hz, "cuda",
+                               dopplers=dops,
+                               carrier_freq_hz=sig.carrier_freq_hz)
+    rec = torch.from_numpy(iq).to("cuda")
+    reset_launches()
+    want = track_superblock(rec, 0, tables, None, state, params,
+                            MESH_EPOCHS)
+    torch.cuda.synchronize()
+    _only("mesh-step whole", dict(LAUNCHES), "track_superblock", 1)
+    mesh = make_mesh(device=["cuda:0", "cuda:0"])
+    bank = shard_channel_bank(state, tables, None, mesh)
+    reset_launches()
+    got = tracking_step_sharded(rec, 0, bank, params, MESH_EPOCHS)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    _only("mesh-step", launches, "track_superblock", 2)
+    n_diff, err32 = _hold_tracks("mesh-step", got, want)
+    # the plain version shard by shard, joined in channel order
+    plain = [track_superblock_epochs(rec, 0, sct, spt, st, params,
+                                     MESH_EPOCHS)
+             for _, st, sct, spt in bank.shards]
+    plain = (ChannelState(*(torch.cat(x)
+                            for x in zip(*(p[0] for p in plain)))),
+             TrackOutputs(*(torch.cat(x, 1)
+                            for x in zip(*(p[1] for p in plain)))))
+    n_plain, err_plain = _hold_tracks("mesh-step eager", got, plain)
+    ms = _in_turns(
+        lambda: track_superblock(rec, 0, tables, None, state, params,
+                                 MESH_EPOCHS),
+        lambda: tracking_step_sharded(rec, 0, bank, params, MESH_EPOCHS))
+
+    def wrapper_calls(banks):
+        packed = [(t, pack_state(st),
+                   torch.full((st.carr_freq.shape[0],), rec.numel() // 2,
+                              dtype=torch.int64, device="cuda"))
+                  for t, st in banks]
+
+        def fn():
+            for t, pk, end in packed:
+                track_superblock_bank(rec, 0, t, None, *pk, end,
+                                      MESH_EPOCHS, params,
+                                      up_margin=UP_MARGIN)
+        return fn
+
+    whole = wrapper_calls([(tables, state)])
+    shards = wrapper_calls([(sct, st) for _, st, sct, _ in bank.shards])
+    w1, s1, s2, w2 = (_timed(f, 5) for f in (whole, shards, shards, whole))
+    log(f"[mesh-step] {card}: {len(channels)} channels x {MESH_EPOCHS} "
+        f"epochs over a 2-entry 'ch' mesh of cuda:0 (6 rows a shard, "
+        f"cluster {cluster_size(6)}; the whole bank cluster "
+        f"{cluster_size(12)}): {launches['track_superblock']} "
+        f"track_superblock launches; {n_diff} elements differ from the "
+        f"whole bank, f32 by at most {err32:.3g}; {n_plain} from the eager "
+        f"loop on the shards, f32 by at most {err_plain:.3g}; card time "
+        f"per superblock (CUDA events over 5 back-to-back calls, in "
+        f"turns): the whole bank's launch {w1:.4f}, {w2:.4f} ms, the two "
+        f"shards' launches {s1:.4f}, {s2:.4f} ms; wall per call, in turns "
+        f"(whole, sharded, sharded, whole; the sharded joined on the "
+        f"card): {', '.join(f'{x:.2f}' for x in ms)} ms")
+    return launches["track_superblock"]
+
+
+def _in_turns(plain, other):
+    """Wall ms of ``plain``, ``other``, ``other``, ``plain``, each ended
+    with the card synchronised."""
+    import torch
+    out = []
+    for fn in (plain, other, other, plain):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _mesh_pcps(card, made):
+    """Phase 17 (b): the preset's search (32 PRNs x 29 bins x 20 x 1 ms)
+    on the main record's first slabs through ``pcps_sharded`` on 2 'ch'
+    shards of the card, against the unsharded ``_pcps_cdma_kernel`` on
+    the same slabs: code phase and bin exact, peak rtol 1e-5."""
+    import numpy as np
+    import torch
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.acquisition.pcps import _pcps_cdma_kernel
+    from cusdr_tpu_torch.parallel import make_mesh, pcps_sharded
+    from cusdr_tpu_torch.signals.defs import get_signal, sample_code
+    cfg = get_config("gps_l1ca")
+    sig = get_signal("gps_l1ca")
+    _, iq, _ = made
+    # the slabs and code spectra as acquisition.pcps.acquire makes them
+    spc, noncoh = cfg.samples_per_code, cfg.acq_non_coh_time
+    win_len = 2 * spc
+    nfft = 1 << (win_len - 1).bit_length()
+    x = (iq[0:2 * (noncoh + 1) * spc:2].astype(np.float32)
+         + 1j * iq[1:2 * (noncoh + 1) * spc:2].astype(np.float32))
+    slabs = np.zeros((noncoh, nfft), np.complex64)
+    slabs[:, :win_len] = x[np.arange(noncoh)[:, None] * spc
+                           + np.arange(win_len)[None, :]]
+    prns = list(cfg.acq_satellite_list)
+    cfc = np.zeros((len(prns), 1, nfft), np.complex64)
+    for i, prn in enumerate(prns):
+        padded = np.zeros(nfft, np.float32)
+        padded[:spc] = sample_code(sig.data_code(prn), sig.elements_per_chip,
+                                   sig.chip_rate_hz, cfg.sampling_freq, spc)
+        cfc[i, 0] = np.conj(np.fft.fft(padded))
+    f_grid = (cfg.if_freq + cfg.acq_search_band - cfg.acq_search_step
+              * np.arange(cfg.num_freq_bins)).astype(np.float32)
+    args = (torch.from_numpy(slabs).to("cuda"),
+            torch.from_numpy(cfc).to("cuda"), torch.ones(1, device="cuda"),
+            torch.from_numpy(f_grid).to("cuda"),
+            np.float32(1.0 / cfg.sampling_freq))
+    mesh = make_mesh(device=["cuda:0", "cuda:0"])
+    want = _pcps_cdma_kernel(*args, noncoh, 1, 2 * spc)
+    got = pcps_sharded(*args, n_comp=1, search_len=2 * spc, mesh=mesh)
+    ms = _in_turns(lambda: _pcps_cdma_kernel(*args, noncoh, 1, 2 * spc),
+                   lambda: pcps_sharded(*args, n_comp=1, search_len=2 * spc,
+                                        mesh=mesh))
+    peak, b, ph, second, floor = (x.cpu().numpy() for x in got)
+    w = [x.cpu().numpy() for x in want]
+    if not (np.array_equal(b, w[1]) and np.array_equal(ph, w[2])):
+        raise AssertionError(f"[mesh-pcps] bins {b} / {w[1]}, code phases "
+                             f"{ph} / {w[2]}")
+    for name, g, r in (("peak", peak, w[0]), ("second", second, w[3]),
+                       ("floor", floor, w[4])):
+        if not np.allclose(g, r, rtol=1e-5, atol=0):
+            raise AssertionError(f"[mesh-pcps] {name}: {g} against {r}")
+    # acquisition's GLRT metric (acquisition.pcps.acquire) detects every
+    # SV of the scene, at its true code phase within half a chip
+    metric = (np.sqrt(np.pi) / 2.0) * peak / np.maximum(floor, 1e-12)
+    found = {p: int(ph[i]) for i, p in enumerate(prns)
+             if metric[i] > cfg.acq_threshold}
+    svs = made[0]
+    missed = [sv.prn for sv in svs if sv.prn not in found
+              or abs((found[sv.prn] - sv.code_phase + spc / 2) % spc
+                     - spc / 2)
+              > 0.5 * cfg.sampling_freq / cfg.code_freq_basis]
+    if missed:
+        raise AssertionError(f"[mesh-pcps] SVs not found at their code "
+                             f"phases: {missed} (found {found})")
+    log(f"[mesh-pcps] {card}: {len(prns)} PRNs x {len(f_grid)} bins x "
+        f"{noncoh} ms over 2 'ch' shards of cuda:0: wall per call, in "
+        f"turns (unsharded, sharded, sharded, unsharded) "
+        f"{', '.join(f'{x:.1f}' for x in ms)} ms; bins and code phases "
+        f"equal, peaks within rtol "
+        f"{np.max(np.abs(peak - w[0]) / np.abs(w[0])):.2g}; all "
+        f"{len(svs)} SVs detected at their code phases ({len(found)} "
+        f"PRNs above the threshold)")
+
+
+def _mesh_time_blocks(card, made):
+    """Phase 17 (c): ``track_time_parallel`` on the main record from the
+    SVs' truth with ``time_blocks=8`` over a 1x2 ch x tb mesh of cuda:0
+    (48 rows a shard: two blocks a row, per-row ends) against the flat
+    bank on the card (96 rows: one block a row), and against the eager
+    loop, the kernel's plain version, on the same mesh
+    (``epoch_loop=True``: each shard's same block buffers, per-row ends
+    and handoff), in the same call.  Returns (the
+    mesh run's superblock-kernel launches, its result, its real-time
+    factor, the flat bank's)."""
+    import torch
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.ops.correlator import (LAUNCHES, cluster_size,
+                                                reset_launches)
+    from cusdr_tpu_torch.parallel.mesh import Mesh
+    from cusdr_tpu_torch.parallel.timeblocks import track_time_parallel
+    from cusdr_tpu_torch.signals.defs import get_signal
+    cfg = get_config("gps_l1ca", time_blocks=TIME_BLOCKS)
+    sig = get_signal("gps_l1ca")
+    svs, iq, _ = made
+    channels = _truth_channels(cfg, svs)
+    n_ep = _mesh_epochs(cfg, iq, channels)
+    passes = cfg.handoff_iters + 1
+    rec_s = n_ep * sig.code_period_ms * 1e-3
+    mesh = Mesh([["cuda:0", "cuda:0"]], ("ch", "tb"))
+    runs = {}
+    for name, kw, want in (("flat", dict(device="cuda"), passes),
+                           ("mesh", dict(mesh=mesh), 2 * passes)):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = track_time_parallel(cfg, sig, iq, channels, n_ep, TIME_BLOCKS,
+                                  **kw)
+        sec = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        _only(f"mesh-tb {name}", launches, "track_superblock", want)
+        runs[name] = (res, sec, launches["track_superblock"])
+    (flat, flat_s, _), (got, sec, n_launch) = runs["flat"], runs["mesh"]
+    n_diff, err32 = _hold_tracks("mesh-tb", got, flat)
+    # the plain version on the same mesh: each shard's eager loop over the
+    # same block buffers, per-row ends and handoff
+    t0 = time.perf_counter()
+    plain = track_time_parallel(cfg, sig, iq, channels, n_ep, TIME_BLOCKS,
+                                mesh=mesh, epoch_loop=True)
+    plain_s = time.perf_counter() - t0
+    n_plain, err_plain = _hold_tracks("mesh-tb eager", got, plain)
+    worst = _block_tails_locked("mesh-tb", got, 200)
+    log(f"[mesh-tb] {card}: {TIME_BLOCKS} blocks x {len(channels)} channels "
+        f"x {n_ep // TIME_BLOCKS} epochs x {passes} passes over a 1x2 ch x "
+        f"tb mesh of cuda:0 ({TIME_BLOCKS // 2 * len(channels)} rows a "
+        f"shard, cluster {cluster_size(48)}; the flat 96-row bank cluster "
+        f"{cluster_size(96)}): {n_launch} track_superblock launches (2 "
+        f"shards x {passes} passes) in {sec:.3f} s = {rec_s / sec:.3f}x "
+        f"real time, against {flat_s:.3f} s = {rec_s / flat_s:.3f}x for the "
+        f"flat bank in this call; {n_diff} elements differ from the flat "
+        f"bank, f32 by at most {err32:.3g}; {n_plain} from the eager loop "
+        f"on the same mesh ({plain_s:.3f} s), f32 by at most "
+        f"{err_plain:.3g}; lowest block-tail "
+        f"mean|I_P|/std(Q_P) {worst:.1f}")
+    return n_launch, got, rec_s / sec, rec_s / flat_s
+
+
+def _mesh_epochs(cfg, iq, channels):
+    """The epochs ``Receiver.track`` takes from the record with
+    ``cfg.time_blocks``: all it holds, down to a block multiple."""
+    spc = cfg.samples_per_code
+    n = (len(iq) // 2 - max(ch[2] for ch in channels) - 2 * spc) // spc
+    return n // cfg.time_blocks * cfg.time_blocks
+
+
+def mesh_rank(rank, port, rec_path, out_path, channels):
+    """Phase 17 (d), one rank (a spawned process): join a two-process gloo
+    group, build the 2x1 ch x tb mesh (one cuda:0 entry each, 'ch' across
+    the processes), track the record time-parallel over it and write the
+    stitched result and this rank's superblock-kernel launches."""
+    import numpy as np
+    import torch.distributed as dist
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.ops.correlator import LAUNCHES, reset_launches
+    from cusdr_tpu_torch.parallel.distributed import (init_distributed,
+                                                      make_mesh_2d)
+    from cusdr_tpu_torch.parallel.timeblocks import track_time_parallel
+    from cusdr_tpu_torch.signals.defs import get_signal
+    from cusdr_tpu_torch.tracking.engine import TrackOutputs
+    init_distributed(f"localhost:{port}", num_processes=2, process_id=rank,
+                     local_device_ids=[0])
+    try:
+        mesh = make_mesh_2d(n_ch=2, n_tb=1, device="cuda")
+        if mesh.ranks.tolist() != [[0], [1]]:
+            raise AssertionError(f"rank {rank}: {mesh!r}")
+        cfg = get_config("gps_l1ca", time_blocks=TIME_BLOCKS)
+        iq = np.fromfile(rec_path, np.int8)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = track_time_parallel(cfg, get_signal("gps_l1ca"), iq, channels,
+                                  _mesh_epochs(cfg, iq, channels),
+                                  TIME_BLOCKS, mesh=mesh)
+        sec = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    np.savez(out_path, status=np.asarray(res.status), seconds=sec,
+             launches=LAUNCHES["track_superblock"],
+             others=sum(LAUNCHES.values()) - LAUNCHES["track_superblock"],
+             active_until=res.active_until,
+             **{f: getattr(res, f) for f in TrackOutputs._fields})
+
+
+def _mesh_processes(card, made, single):
+    """Phase 17 (d): two spawned ranks, gloo, both on cuda:0, over a 2x1
+    ch x tb mesh: each rank's stitched result equal to phase (c)'s
+    single-process result within its tolerances, and the two ranks'
+    results equal.  Returns each rank's superblock-kernel launches."""
+    import socket
+    import tempfile
+    import numpy as np
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.tracking.engine import TrackResults
+    cfg = get_config("gps_l1ca", time_blocks=TIME_BLOCKS)
+    svs, iq, _ = made
+    channels = _truth_channels(cfg, svs)
+    ctx = multiprocessing.get_context("spawn")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        rec_path = Path(tmp) / "main_record.bin"
+        iq.tofile(rec_path)
+        outs = [Path(tmp) / f"rank{r}.npz" for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, port, str(rec_path), str(outs[r]),
+                                   channels)) for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(MESH_RANK_TIMEOUT_S)
+        finally:
+            hung = [p for p in procs if p.is_alive()]
+            for p in hung:
+                p.kill()
+                p.join()
+        wall = time.perf_counter() - t0
+        if hung or any(p.exitcode for p in procs):
+            raise AssertionError(
+                f"[mesh-ranks] exit codes {[p.exitcode for p in procs]}"
+                f"{' (killed at the timeout)' if hung else ''}")
+        ranks = [dict(np.load(o)) for o in outs]
+    passes = cfg.handoff_iters + 1
+    results = []
+    for r, got in enumerate(ranks):
+        if got["launches"] != passes or got["others"]:
+            raise AssertionError(f"[mesh-ranks] rank {r}: {got['launches']} "
+                                 f"track_superblock launches ({passes} "
+                                 f"expected), {got['others']} of others")
+        res = TrackResults([ch[0] for ch in channels],
+                           {f: got[f] for f in got
+                            if f not in ("status", "seconds", "launches",
+                                         "others", "active_until")}, cfg)
+        if not (np.array_equal(res.active_until, got["active_until"])
+                and list(res.status) == list(got["status"])):
+            raise AssertionError(f"[mesh-ranks] rank {r}: status "
+                                 f"{got['status']}")
+        results.append(res)
+    differ = {f: int((ranks[0][f] != ranks[1][f]).sum()) for f in ranks[0]
+              if f not in ("seconds", "launches", "others")}
+    if any(differ.values()):
+        raise AssertionError(f"[mesh-ranks] the ranks' results differ: "
+                             f"{differ}")
+    n_diff, err32 = _hold_tracks("mesh-ranks", results[0], single)
+    log(f"[mesh-ranks] {card}: 2 ranks (spawned, gloo, both on cuda:0) over "
+        f"a 2x1 ch x tb mesh, {TIME_BLOCKS} blocks x 6 channels a rank: "
+        f"{int(ranks[0]['launches'])} track_superblock launches a rank, "
+        f"tracking {float(ranks[0]['seconds']):.3f} / "
+        f"{float(ranks[1]['seconds']):.3f} s, {wall:.1f} s for the two "
+        f"processes; the ranks' results equal; {n_diff} elements differ "
+        f"from phase (c)'s single-process mesh, f32 by at most {err32:.3g}")
+    return [int(g["launches"]) for g in ranks]
+
+
+def mesh_path(card: str, made, flat_rt):
+    """Phase 17: multi-device on one card, (a)-(d).  Returns the
+    superblock-kernel launches of (a) and of (c), the main path of the
+    mesh."""
+    t0 = time.perf_counter()
+    n_step = _mesh_step(card, made)
+    _mesh_pcps(card, made)
+    n_tb, single, rt, rt_flat = _mesh_time_blocks(card, made)
+    log(f"[mesh-tb] real-time factors on {card}: the 1x2 mesh {rt:.3f}x, "
+        f"the flat bank {rt_flat:.3f}x in phase 17, {flat_rt:.3f}x in "
+        f"phase 9 (acquired channels)")
+    _mesh_processes(card, made, single)
+    log(f"[mesh] phase 17 in {time.perf_counter() - t0:.1f} s")
+    return n_step, n_tb
+
+
 def _kernel_json(name, launches, checks):
     """One kernel's entry of the JSON line: ``ms`` / ``plain_ms`` /
     ``bound_ms`` at the first shape listed for it (its path's, the preset's
@@ -2523,7 +2959,7 @@ def main() -> int:
         "correlate_bank_dual_pilot", 100)
     pvt_pilot(smi, scenes["l5"])
     (tp_bank, launches["track_superblock_staged"],
-     launches["correlate_windows"]) = time_parallel_path(
+     launches["correlate_windows"], tp_rt) = time_parallel_path(
         smi, scenes["main"], seq_res)
     (launches["track_superblock_staged_pilot"],
      launches["correlate_windows_pilot"]) = staged_pilot_path(
@@ -2540,6 +2976,7 @@ def main() -> int:
     multi_launches = multi_signal_path(smi, scenes)
     gather = gather_path(smi, scenes["b1c_gather"])
     cli_path(smi, scenes)
+    mesh_step, mesh_tb = mesh_path(smi, scenes["main"], tp_rt)
     missing = [name for name in checks if not launches.get(name)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
@@ -2554,6 +2991,10 @@ def main() -> int:
             entry["launches_gps_l2c"] = l2c_launches
             entry["launches_glo_l1"] = glo_launches[0]
             entry["launches_glo_l2_time_parallel"] = glo_launches[1]
+            # phase 17: time blocks over a 1x2 mesh of the card (shards x
+            # passes), and the sharded tracking step (one per shard)
+            entry["launches_mesh"] = mesh_tb
+            entry["launches_mesh_step"] = mesh_step
         elif entry["name"] == "track_superblock_staged":
             entry["launches_glo_l2_per_block"] = glo_launches[2]
         if entry["name"] in multi_launches[0]:

@@ -1,10 +1,10 @@
 """Time-block parallel tracking (the sequence-parallel axis).
 
-Counterpart of cusdr_tpu/parallel/timeblocks.py, single device.  Sequential
-tracking carries the DLL/PLL state from epoch to epoch; here the record's
-timeline is split into B blocks that are tracked at the same time as one
-B·C-row channel bank, so the per-epoch host work of the eager engine is
-paid once for B epochs of record.  Two modes compose:
+Counterpart of cusdr_tpu/parallel/timeblocks.py.  Sequential tracking
+carries the DLL/PLL state from epoch to epoch; here the record's timeline
+is split into B blocks that are tracked at the same time as one B·C-row
+channel bank, so the per-epoch host work of the eager engine is paid once
+for B epochs of record.  Two modes compose:
 
   * predict (handoff_iters = 0): each block starts from a state propagated
     open-loop from the acquisition solution (``predict_block_states``).
@@ -19,17 +19,20 @@ paid once for B epochs of record.  Two modes compose:
     only by the loops' decayed memory of their predicted start.
 
 Two ways to run a pass, as in the reference: the flat bank over the whole
-record on the device, windows fetched by the kernel (``_track_blocks_flat``,
-the default), and the per-block path over per-block sample buffers with
-windows staged (``_track_blocks``); on a card each is one superblock-kernel
-launch per pass.  The gather path (``fast_code`` False) takes element tables
-and always the per-block path, as in the reference (its flat bank needs the
-sliced replicas), with the eager gather loop in the kernel's place.  The
-reference vmaps
-its per-block path; here the blocks' buffers are concatenated into one
-pseudo-record and run as one flat bank with a per-row record end, as the
-reference's sharded body does.  Sharding the block axis over several
-devices is not ported yet (ROADMAP.md Queue A item 11).
+record on one device, windows fetched by the kernel (``_track_blocks_flat``,
+the default); and the blocks over their own sample buffers
+(``_track_sharded``), split with a ``mesh`` (parallel/mesh.py) over its
+'tb' axis and the channels over 'ch', each shard tracking its blocks as one
+bank.  Without a mesh that is the per-block path, one shard on the device
+with the windows staged (``fetch_in_kernel`` False); a mesh's shards keep
+the in-kernel fetch unless it is asked off.  On a card each is one
+superblock-kernel launch per pass (per shard and pass on a mesh).  The
+gather path (``fast_code`` False) takes element tables and the per-block
+buffers, as in the reference (its flat bank needs the sliced replicas),
+with the eager gather loop in the kernel's place.  The reference vmaps its
+per-block path; here a shard's block buffers are concatenated into one
+pseudo-record and run as one flat bank with a per-row record end
+(``_blocks_bank``), the body the reference's sharded path runs per shard.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ from ..tracking.engine import (ChannelState, TrackOutputs, TrackParams,
                                code_dopplers, init_channel_state,
                                make_track_params, track_superblock,
                                track_superblock_epochs)
+from .mesh import (Mesh, check_divides, gather_shards, join, local_shards,
+                   shard_plan)
 
 # correlator outputs that flip with a block's Costas lock sign
 _SIGNED = {"i_e", "q_e", "i_p", "q_p", "i_l", "q_l", "pilot_ip", "pilot_qp"}
@@ -96,19 +101,31 @@ def _track_blocks_flat(samples_iq, tables, ptables, states: ChannelState,
 def _track_blocks(samples_blocks, block_starts, block_ends, tables, ptables,
                   states: ChannelState, params: TrackParams, n_epochs: int,
                   epoch_loop: bool = False):
-    """The per-block path: every block tracks inside its own sample
-    buffer, with the windows staged (``fetch_in_kernel=False``): on a card
-    one launch of the staged superblock kernel per pass, which copies each
+    """One pass of the per-block path: every block tracks inside its own
+    sample buffer, with the windows staged (``fetch_in_kernel=False``): on
+    a card one launch of the staged superblock kernel, which copies each
     epoch's windows into shared memory; on the CPU the eager loop, which
-    gathers them before its per-epoch kernel.
+    gathers them before its per-epoch kernel.  Arguments and result as
+    ``_blocks_bank``'s."""
+    params = dataclasses.replace(params, fetch_in_kernel=False)
+    return _blocks_bank(samples_blocks, block_starts, block_ends, tables,
+                        ptables, states, params, n_epochs, epoch_loop)
+
+
+def _blocks_bank(samples_blocks, block_starts, block_ends, tables, ptables,
+                 states: ChannelState, params: TrackParams, n_epochs: int,
+                 epoch_loop: bool = False):
+    """Blocks tracked inside their own sample buffers as one bank, the
+    windows fetched or staged as ``params.fetch_in_kernel`` says.
 
     samples_blocks: [B, 2·S_blk] int8 or int16 interleaved block buffers;
     block_starts / block_ends: [B] int64 absolute sample range of each
     buffer; states leaves [B, C].  The buffers are read as one
     pseudo-record with block b at sample b·S_blk: ``abs_sample`` is
-    remapped into it on the way in and back on the way out, and each row
-    freezes at its own block's end."""
-    params = dataclasses.replace(params, fetch_in_kernel=False)
+    remapped into it on the way in and back on the way out (the outputs'
+    ``abs_sample`` is absolute), and each row freezes at its own block's
+    end.  The tables are shared by row modulo.  Returns (states [B, C],
+    outputs [B, n_epochs, C])."""
     b, c = states.abs_sample.shape
     blk_len = samples_blocks.shape[1] // 2
     offs = block_starts - torch.arange(
@@ -121,6 +138,95 @@ def _track_blocks(samples_blocks, block_starts, block_ends, tables, ptables,
     st = st._replace(abs_sample=st.abs_sample + offs[:, None])
     outs = outs._replace(abs_sample=outs.abs_sample + offs[:, None, None])
     return st, outs
+
+
+def _block_buffers(samples_iq: np.ndarray, starts: np.ndarray, blocks,
+                   epochs_per_block: int, spc: int, blk: int):
+    """Per-block sample buffers: one code period of front margin (the
+    handoff may move a block's start slightly before its predicted one)
+    and a tail margin.  Returns (buffers [B, 2·S_blk], their absolute first
+    samples [B], their ends [B]); only the rows of ``blocks`` hold
+    samples (a process fills only its own shards' blocks)."""
+    n_blocks = starts.shape[0]
+    total = len(samples_iq) // 2
+    blk_len = (epochs_per_block + 4) * spc + blk + 256
+    sb = np.zeros((n_blocks, 2 * blk_len), samples_iq.dtype)
+    sb_start = np.maximum(starts.min(axis=1) - spc, 0).astype(np.int64)
+    sb_end = np.minimum(sb_start + blk_len, total).astype(np.int64)
+    for b in blocks:
+        s0, s1 = int(sb_start[b]), int(sb_end[b])
+        sb[b, :2 * (s1 - s0)] = samples_iq[2 * s0:2 * s1]
+    return sb, sb_start, sb_end
+
+
+def _track_sharded(mesh, samples_iq, starts, ctabs, ptabs, states0,
+                   params: TrackParams, n_epochs: int, handoff_iters: int,
+                   spc: int, epoch_loop: bool = False):
+    """The passes of ``track_time_parallel`` over block buffers: the B
+    blocks split over the mesh's 'tb' axis and the C channels over 'ch' (1
+    without one).
+    Each local (tb, ch) shard tracks its b_loc blocks x c_loc channels as
+    one bank over its blocks' buffers (``_blocks_bank``; on a card one
+    superblock-kernel launch per shard and pass, the windows fetched in
+    the kernel unless ``params.fetch_in_kernel`` is False), with its
+    channels' table rows.  After a pass the shards' final states are
+    joined (all-gathered across processes) and ring-shifted, and each
+    shard takes its part of the new starting states; the last pass's
+    outputs are joined likewise.
+
+    states0 leaves [B, C] on the mesh's first local device; ctabs /
+    ptabs: numpy tables, one row per channel.  Returns (the states the
+    last pass started from, its final states, its outputs [B, n_epochs,
+    C]), whole on every process."""
+    n_blocks, n_ch = states0.abs_sample.shape
+    # keys (tb index, ch index)
+    plan = shard_plan(mesh, [a for a in ("tb", "ch")
+                             if a in mesh.axis_names])
+    if "ch" not in mesh.axis_names:
+        plan = [s._replace(key=s.key + (0,)) for s in plan]
+    b_loc = n_blocks // mesh.axis_size("tb")
+    c_loc = n_ch // mesh.axis_size("ch")
+    mine = local_shards(mesh, plan)
+    # owner computes: only this process's blocks get their samples
+    sb, sb_start, sb_end = _block_buffers(
+        samples_iq, starts,
+        sorted({b for s in mine for b in range(s.key[0] * b_loc,
+                                               (s.key[0] + 1) * b_loc)}),
+        n_epochs, spc, params.blk)
+    inputs, bufs = {}, {}
+    for s in mine:
+        bs = slice(s.key[0] * b_loc, (s.key[0] + 1) * b_loc)
+        cs = slice(s.key[1] * c_loc, (s.key[1] + 1) * c_loc)
+        if (bs.start, s.device) not in bufs:
+            bufs[bs.start, s.device] = tuple(
+                torch.from_numpy(x[bs]).to(s.device)
+                for x in (sb, sb_start, sb_end))
+        inputs[s.key] = (s.device, bs, cs, bufs[bs.start, s.device],
+                         torch.from_numpy(ctabs[cs]).to(s.device),
+                         None if ptabs is None else
+                         torch.from_numpy(ptabs[cs]).to(s.device))
+
+    n_st = len(ChannelState._fields)
+    states = states0
+    for it in range(handoff_iters + 1):
+        last = it == handoff_iters
+        parts = {}
+        for key, (dev, bs, cs, buf, ct, pt) in inputs.items():
+            # a copy, never a view: a shard's states are its own
+            st = ChannelState(*(x[bs, cs].to(dev, copy=True)
+                                for x in states))
+            st, outs = _blocks_bank(*buf, ct, pt, st, params, n_epochs,
+                                    epoch_loop)
+            # only the last pass's outputs are joined
+            parts[key] = (*st, *outs) if last else tuple(st)
+        parts = gather_shards(mesh, plan, parts)
+        final = ChannelState(*join({k: v[:n_st] for k, v in parts.items()},
+                                   (0, 1), mesh.home))
+        if not last:
+            states = _ring_shift(states0, final)
+    outs = TrackOutputs(*join({k: v[n_st:] for k, v in parts.items()},
+                              (0, 2), mesh.home))
+    return states, final, outs
 
 
 def predict_block_states(channels: Sequence, cfg, sig: SignalDef,
@@ -166,11 +272,14 @@ def predict_block_states(channels: Sequence, cfg, sig: SignalDef,
 def track_time_parallel(cfg, sig: SignalDef, samples_iq: np.ndarray,
                         channels: Sequence, n_epochs: int, n_blocks: int,
                         settle_epochs: Optional[int] = None,
-                        handoff_iters: Optional[int] = None, *, device,
+                        handoff_iters: Optional[int] = None, *, device=None,
                         fetch_in_kernel: bool = True,
-                        epoch_loop: bool = False) -> TrackResults:
+                        epoch_loop: bool = False, mesh=None) -> TrackResults:
     """Track ``n_epochs`` split into ``n_blocks`` concurrent time blocks
-    on ``device``.
+    on ``device``, or over ``mesh`` (parallel/mesh.py: the blocks split
+    over its 'tb' axis, the channels over 'ch' if it has one; every
+    process of a mesh that spans processes holds the record and returns
+    the same whole result).
 
     ``handoff_iters`` further passes re-seed each block from its left
     neighbour's final state (module docstring); at 0, per-block transients
@@ -178,11 +287,12 @@ def track_time_parallel(cfg, sig: SignalDef, samples_iq: np.ndarray,
     result and ``nav_solve`` masks them.  ``fetch_in_kernel`` picks the
     flat bank over the whole record (True) or the per-block path over
     per-block buffers with staged windows (False); the gather path
-    (``fast_code`` False) always takes the per-block path.  ``epoch_loop``
-    runs the eager epoch loop, the superblock kernels' plain version, in
-    their place on the card too (a yardstick for the kernels in the same
+    (``fast_code`` False) always takes the per-block path.  On a mesh
+    each shard runs its blocks' buffers with the windows fetched in the
+    kernel, or staged with ``fetch_in_kernel`` False.  ``epoch_loop`` runs
+    the eager epoch loop, the superblock kernels' plain version, in their
+    place on the card too (a yardstick for the kernels in the same
     process)."""
-    device = torch.device(device)
     samples_iq = np.ascontiguousarray(np.asarray(samples_iq))
     params = make_track_params(cfg, sig)
     params = dataclasses.replace(
@@ -196,50 +306,42 @@ def track_time_parallel(cfg, sig: SignalDef, samples_iq: np.ndarray,
     if epochs_per_block * n_blocks != n_epochs:
         raise ValueError(f"n_epochs={n_epochs} is not a multiple of "
                          f"n_blocks={n_blocks}")
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("give a device or a mesh, not both")
+        if "tb" not in mesh.axis_names:
+            raise ValueError(f"the mesh has no 'tb' axis: "
+                             f"{mesh.axis_names}")
+        check_divides(n_blocks, mesh, "tb", "time blocks")
+        check_divides(len(channels), mesh, "ch", "channels")
+        device = mesh.home
+    device = torch.device("cuda" if device is None else device)
 
     states0, starts = predict_block_states(channels, cfg, sig, n_blocks,
                                            epochs_per_block, device)
     dopplers0 = code_dopplers(cfg, sig, channels)
     ctabs, ptabs = build_tables(cfg, sig, params, channels, dopplers0)
-    tables = torch.from_numpy(ctabs).to(device)
-    ptables = None if ptabs is None else torch.from_numpy(ptabs).to(device)
-
-    if params.fetch_in_kernel:
-        samples_d = torch.from_numpy(samples_iq).to(device)
-
-        def one_pass(states):
-            return _track_blocks_flat(samples_d, tables, ptables, states,
-                                      params, epochs_per_block, n_blocks,
-                                      epoch_loop)
+    if mesh is None and not params.fetch_in_kernel:
+        # the per-block path: every block in one shard on the device
+        mesh = Mesh([device], ("tb",))
+    if mesh is not None:
+        states, final, outs = _track_sharded(
+            mesh, samples_iq, starts, ctabs, ptabs, states0, params,
+            epochs_per_block, handoff_iters, spc, epoch_loop)
     else:
-        # per-block sample buffers: one code period of front margin (the
-        # handoff may move a block's start slightly before its predicted
-        # one) and a tail margin
-        total = len(samples_iq) // 2
-        blk_len = (epochs_per_block + 4) * spc + params.blk + 256
-        sb = np.zeros((n_blocks, 2 * blk_len), samples_iq.dtype)
-        sb_start = np.zeros(n_blocks, np.int64)
-        sb_end = np.zeros(n_blocks, np.int64)
-        for b in range(n_blocks):
-            s0 = max(int(starts[b].min()) - spc, 0)
-            s1 = min(s0 + blk_len, total)
-            sb_start[b], sb_end[b] = s0, s1
-            sb[b, :2 * (s1 - s0)] = samples_iq[2 * s0:2 * s1]
-        sb_d, starts_d, ends_d = (torch.from_numpy(x).to(device)
-                                  for x in (sb, sb_start, sb_end))
-
-        def one_pass(states):
-            return _track_blocks(sb_d, starts_d, ends_d, tables, ptables,
-                                 states, params, epochs_per_block,
-                                 epoch_loop)
-
-    # every pass's outputs stay on the device; only the last pass's are
-    # fetched (once, in _stitch)
-    states = states0
-    for it in range(handoff_iters + 1):
-        final, outs = one_pass(states)
-        if it < handoff_iters:
-            states = _ring_shift(states0, final)
+        samples_d = torch.from_numpy(samples_iq).to(device)
+        tables = torch.from_numpy(ctabs).to(device)
+        ptables = None if ptabs is None else torch.from_numpy(ptabs).to(
+            device)
+        # every pass's outputs stay on the device; only the last pass's
+        # are fetched (once, in _stitch)
+        states = states0
+        for it in range(handoff_iters + 1):
+            final, outs = _track_blocks_flat(
+                samples_d, tables, ptables, states, params,
+                epochs_per_block, n_blocks, epoch_loop)
+            if it < handoff_iters:
+                states = _ring_shift(states0, final)
     return _stitch(cfg, channels, n_blocks, epochs_per_block, handoff_iters,
                    settle_epochs, states, final, outs)
 

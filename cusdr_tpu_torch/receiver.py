@@ -271,7 +271,7 @@ def _stage_seconds(timer: StageTimer) -> Dict[str, float]:
     return {f"{name}_s": rec.seconds for name, rec in timer.stages.items()}
 
 
-def run_multi(entries, device="cuda", n_ms=None) -> list:
+def run_multi(entries, device="cuda", n_ms=None, mesh=None) -> list:
     """Several signals at once, one IF record each, on ``device``.
 
     entries: sequence of (cfg, samples_iq or None); None reads
@@ -279,6 +279,8 @@ def run_multi(entries, device="cuda", n_ms=None) -> list:
     signal's channel bank is tracked at once (``tracking.multi
     .track_multi``, no lock gate), then nav/PVT solves per signal.
     ``n_ms``: common span, default the least ``cfg.ms_to_process`` given.
+    With ``mesh`` the channel banks are tracked with their rows split over
+    its 'ch' axis (acquisition and navigation stay on ``device``).
     Returns a list of ReceiverResults, one per entry; each one's timings
     hold its own acquisition and navigation seconds and the seconds of
     the shared tracking stage."""
@@ -303,7 +305,9 @@ def run_multi(entries, device="cuda", n_ms=None) -> list:
     trks = []
     if specs:
         with shared.stage("tracking"):
-            trks = track_multi(specs, n_ms=n_ms, device=device)
+            trks = (track_multi(specs, n_ms=n_ms, device=device)
+                    if mesh is None else
+                    track_multi(specs, n_ms=n_ms, mesh=mesh))
     out, ti = [], 0
     for cfg, sig, iq, acq, channels, timer in staged:
         if not channels:

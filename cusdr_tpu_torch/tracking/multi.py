@@ -7,8 +7,11 @@ signals' code periods (L1CA 1 ms + E1C 4 ms -> 4 ms), within which bank b
 runs ``strides[b]`` of its own epochs.
 
 The banks do not interact, so a bank's result equals a standalone ``track``
-of it.  On a card each bank runs on its own CUDA stream: its record goes to
-the card once, whole (as the reference holds it), and a fast bank is
+of it.  With a ``mesh`` (parallel/mesh.py) every bank's channel rows split
+over its 'ch' axis, and each (bank, shard) is a bank of its own on the
+shard's device; the results are joined in channel order.  On a card each
+bank runs on its own CUDA stream: its record goes to the card once, whole
+(as the reference holds it), and a fast bank is
 advanced one superblock at a time by ``engine.track_superblock`` (one launch
 of ops/csrc/superblock.cu per superblock, fetch form, ``sb_start`` 0 and the
 record's end), on the epoch boundaries ``track`` uses; a gather bank
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.mesh import Shard, check_divides, shard_plan
 from .engine import (ChannelState, TrackOutputs, TrackResults, build_tables,
                      code_dopplers, init_channel_state, make_track_params,
                      superblock_epochs, superblock_plan, track_superblock)
@@ -59,13 +63,14 @@ def track_superblock_multi(banks, params_list, strides, n_hyper: int,
     plans = [superblock_plan(n_hyper * stride,
                              n_hyper * stride if per is None else per)
              for stride, per in zip(strides, sb_epochs)]
-    dev = banks[0].samples.device
-    cuda = dev.type == "cuda"
+    cuda = banks[0].samples.device.type == "cuda"
     streams = []
     if cuda:
-        # the inputs were made on the current stream: each bank's stream
-        # waits for them, and the allocator keeps them for its stream
+        # the inputs were made on the current stream of their device: each
+        # bank's stream waits for them, and the allocator keeps them for
+        # its stream
         for b in banks:
+            dev = b.samples.device
             s = torch.cuda.Stream(dev)
             s.wait_stream(torch.cuda.current_stream(dev))
             for x in (b.samples, b.code_tables, b.pilot_tables, *b.state):
@@ -98,7 +103,7 @@ def track_superblock_multi(banks, params_list, strides, n_hyper: int,
             done.record(streams[i])
             # the current stream reads the bank's outputs after its event,
             # and the allocator keeps them for it
-            cur = torch.cuda.current_stream(dev)
+            cur = torch.cuda.current_stream(banks[i].samples.device)
             cur.wait_event(done)
             for x in (*states[i], *merged):
                 x.record_stream(cur)
@@ -119,8 +124,9 @@ def _hyper_grid(sigs) -> tuple:
 
 
 def track_multi(specs: Sequence, n_ms: Optional[int] = None,
-                device="cuda") -> list:
-    """Track several signals' channel banks concurrently on ``device``.
+                device=None, mesh=None) -> list:
+    """Track several signals' channel banks concurrently on ``device``
+    (default ``"cuda"``), or over ``mesh``.
 
     specs: sequence of (cfg, sig, samples_iq, channels), one entry per
     signal, each with its own IF record (int8 or int16 interleaved I/Q;
@@ -128,46 +134,71 @@ def track_multi(specs: Sequence, n_ms: Optional[int] = None,
     n_ms: common span in milliseconds (default: the largest span every
     record allows).  Each record is held on the device whole, as the
     reference holds it; each bank runs in superblocks of its
-    ``cfg.superblock_ms``.
+    ``cfg.superblock_ms``.  With ``mesh`` (this process's devices; a mesh
+    that spans processes raises, as the reference fails to fetch its
+    results), each bank's channel rows split over the 'ch' axis, which
+    must divide every bank's channel count.
 
     Returns a list of TrackResults, one per signal, each equal to what
     ``engine.track`` with ``lock_detect`` off produces over the same span.
     """
-    device = resolve_device(device)
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("give a device or a mesh, not both")
+        if mesh.spans_processes:
+            raise RuntimeError("track_multi takes a mesh of this process's "
+                               "devices; this one spans processes")
+        plan = shard_plan(mesh, ("ch",))
+        for _, sig, _, channels in specs:
+            check_divides(len(channels), mesh, "ch",
+                          f"channels of {sig.name}")
+    else:
+        plan = [Shard((0,), resolve_device(
+            "cuda" if device is None else device), 0)]
     sigs = [sp[1] for sp in specs]
     hyper_ms, strides = _hyper_grid(sigs)
-    banks, params_list, sb_epochs, limits = [], [], [], []
-    for cfg, sig, samples_iq, channels in specs:
+    # one bank per (signal, shard), shard after shard within a signal
+    banks, params_list, sb_epochs, bank_strides, limits = [], [], [], [], []
+    for (cfg, sig, samples_iq, channels), stride in zip(specs, strides):
         params = make_track_params(cfg, sig)
         samples_iq = np.ascontiguousarray(np.asarray(samples_iq))
         total = len(samples_iq) // 2
         dops = code_dopplers(cfg, sig, channels)
         ct, pt = build_tables(cfg, sig, params, channels, dops)
-        state = init_channel_state(channels, sig.chip_rate_hz, device,
-                                   dopplers=dops,
-                                   carrier_freq_hz=sig.carrier_freq_hz)
         spc = cfg.samples_per_code
         max_phase = max(ch[2] for ch in channels)
         limits.append((total - max_phase - 2 * spc) // spc
                       * sig.code_period_ms)
-        banks.append(BankInputs(
-            torch.from_numpy(samples_iq).to(device), 0,
-            torch.from_numpy(ct).to(device),
-            None if pt is None else torch.from_numpy(pt).to(device),
-            state, total))
-        params_list.append(params)
-        sb_epochs.append(superblock_epochs(cfg, sig))
+        c_loc = len(channels) // len(plan)
+        recs = {}
+        for s in plan:
+            rows = slice(s.key[0] * c_loc, (s.key[0] + 1) * c_loc)
+            if s.device not in recs:
+                recs[s.device] = torch.from_numpy(samples_iq).to(s.device)
+            banks.append(BankInputs(
+                recs[s.device], 0, torch.from_numpy(ct[rows]).to(s.device),
+                None if pt is None else
+                torch.from_numpy(pt[rows]).to(s.device),
+                init_channel_state(channels[rows], sig.chip_rate_hz,
+                                   s.device, dopplers=dops[rows],
+                                   carrier_freq_hz=sig.carrier_freq_hz),
+                total))
+            params_list.append(params)
+            sb_epochs.append(superblock_epochs(cfg, sig))
+            bank_strides.append(stride)
     if n_ms is None:
         n_ms = int(min(limits))
     n_hyper = int(n_ms) // hyper_ms
     if n_hyper < 1:
         raise ValueError(f"n_ms={n_ms} below one {hyper_ms} ms hyperepoch")
 
-    results = track_superblock_multi(banks, params_list, strides, n_hyper,
-                                     sb_epochs)
+    results = track_superblock_multi(banks, params_list, bank_strides,
+                                     n_hyper, sb_epochs)
     out = []
-    for (cfg, _, _, channels), (_, touts) in zip(specs, results):
-        merged = {f: getattr(touts, f).cpu().numpy().T
-                  for f in touts._fields}
+    for i, (cfg, _, _, channels) in enumerate(specs):
+        touts = [r[1] for r in results[i * len(plan):(i + 1) * len(plan)]]
+        merged = {f: torch.cat([getattr(t, f).cpu() for t in touts],
+                               1).numpy().T
+                  for f in TrackOutputs._fields}
         out.append(TrackResults([ch[0] for ch in channels], merged, cfg))
     return out

@@ -1057,3 +1057,116 @@ def test_stage_timer_counts_device_time(cuda):
     device_s = first.elapsed_time(last) / 1e3
     assert device_s > 0.01
     assert timer.stages["matmul"].seconds >= device_s
+
+
+# ---- multi-device on one card: chip_smoke.py phase 17 (a)-(c), small -----
+
+def _sv_scene(fs, n_ch, ms, cn0_dbhz=45.0):
+    """gps_l1ca at ``fs``: ``n_ch`` SVs, a record of ``ms`` ms, and the
+    channels at their true carriers and code phases."""
+    from cusdr_tpu_torch.io.synth import (SynthSV, quantize_iq_int8,
+                                          synthesize_if)
+    cfg = get_config("gps_l1ca", sampling_freq=fs, if_freq=7000.0)
+    sig = get_signal("gps_l1ca")
+    rng = np.random.default_rng(4)
+    svs = [SynthSV(prn=prn, code_phase=float(rng.integers(
+        0, cfg.samples_per_code - 1)), doppler_hz=float(d),
+        cn0_dbhz=cn0_dbhz)
+        for prn, d in zip(cfg.acq_satellite_list,
+                          np.linspace(-4000.0, 4000.0, n_ch))]
+    iq = quantize_iq_int8(synthesize_if(cfg, sig, svs, num_ms=ms, seed=4))
+    return cfg, sig, iq, [(sv.prn, cfg.if_freq + sv.doppler_hz,
+                           int(sv.code_phase)) for sv in svs]
+
+
+def test_tracking_step_sharded_on_card(cuda):
+    """Two 'ch' shards on the one card: one superblock-kernel launch per
+    shard, the joined states and outputs within phase 3e's tolerances of
+    ``track_superblock`` on the whole 12-row bank (both with a cluster of
+    8 a row) and of the eager loop, the kernel's plain version."""
+    from cusdr_tpu_torch.parallel import (make_mesh, shard_channel_bank,
+                                          tracking_step_sharded)
+    iq, tables, ptables, state, params = _locked_bank("gps_l1ca", {}, 12,
+                                                      40, 45.0, cuda)
+    params = dataclasses.replace(params, fetch_in_kernel=True)
+    want = engine.track_superblock(iq, 0, tables, ptables, state, params,
+                                   40)
+    mesh = make_mesh(device=[cuda, cuda])
+    bank = shard_channel_bank(state, tables, ptables, mesh)
+    before = dict(LAUNCHES)
+    got = tracking_step_sharded(iq, 0, bank, params, 40)
+    torch.cuda.synchronize()
+    before["track_superblock"] += 2
+    assert LAUNCHES == before
+    assert corr.cluster_size(6) == corr.cluster_size(12)
+    assert got[1].i_p.shape == (40, 12) and got[1].i_p.is_cuda
+    _assert_within_phase_3e(got, want)
+    _assert_within_phase_3e(got, engine.track_superblock_epochs(
+        iq, 0, tables, ptables, state, params, 40))
+
+
+def test_pcps_sharded_on_card(cuda):
+    """The PRN axis over two 'ch' shards of the card against the unsharded
+    search on the card: code phase and bin exact, peaks rtol 1e-5."""
+    from cusdr_tpu_torch.acquisition.pcps import _pcps_cdma_kernel
+    from cusdr_tpu_torch.parallel import make_mesh, pcps_sharded
+    from cusdr_tpu_torch.signals.defs import sample_code
+    cfg, sig, iq, _ = _sv_scene(2.048e6, 4, 12)
+    spc = cfg.samples_per_code
+    nfft, noncoh, prns = 4 * spc, 4, list(range(1, 9))
+    x = iq[0::2].astype(np.float32) + 1j * iq[1::2].astype(np.float32)
+    slabs = np.zeros((noncoh, nfft), np.complex64)
+    for i in range(noncoh):
+        slabs[i, :2 * spc] = x[i * spc:(i + 2) * spc]
+    cfc = np.stack([np.conj(np.fft.fft(np.concatenate([
+        sample_code(sig.data_code(p), 1, sig.chip_rate_hz,
+                    cfg.sampling_freq, spc).astype(np.float32),
+        np.zeros(nfft - spc, np.float32)])))[None] for p in prns]).astype(
+        np.complex64)
+    args = (torch.from_numpy(slabs).to(cuda), torch.from_numpy(cfc).to(cuda),
+            torch.ones(1, device=cuda),
+            torch.from_numpy((cfg.if_freq + 500.0 * np.arange(-8, 9))
+                             .astype(np.float32)).to(cuda),
+            np.float32(1.0 / cfg.sampling_freq))
+    want = _pcps_cdma_kernel(*args, noncoh, 1, 2 * spc)
+    got = pcps_sharded(*args, n_comp=1, search_len=2 * spc,
+                       mesh=make_mesh(device=[cuda, cuda]))
+    assert got[0].is_cuda and got[0].shape == (len(prns),)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    for g, w in zip(got[::3] + got[4:], want[::3] + want[4:]):
+        assert torch.allclose(g, w, rtol=1e-5, atol=0), (g, w)
+
+
+def test_time_parallel_on_a_card_mesh(cuda):
+    """A 1x2 ch x tb mesh of the card: each shard tracks its two blocks
+    over its own buffers, one superblock-kernel launch per shard and
+    pass; the stitched result within phase 3e's tolerances of the flat
+    bank on the card (24 rows a shard against 48: other cluster sizes) and
+    of the eager loop, the kernel's plain version, on the same mesh (the
+    same block buffers and per-row ends)."""
+    from cusdr_tpu_torch.parallel.mesh import Mesh
+    cfg, sig, iq, chans = _sv_scene(2.048e6, 12, 410)
+    before = dict(LAUNCHES)
+    flat = timeblocks.track_time_parallel(cfg, sig, iq, chans, 400, 4,
+                                          handoff_iters=1, device=cuda)
+    mesh = Mesh([[cuda, cuda]], ("ch", "tb"))
+    got = timeblocks.track_time_parallel(cfg, sig, iq, chans, 400, 4,
+                                         handoff_iters=1, mesh=mesh)
+    torch.cuda.synchronize()
+    before["track_superblock"] += 2 + 2 * 2
+    assert LAUNCHES == before
+    assert corr.cluster_size(24) != corr.cluster_size(48)
+    assert corr.cluster_size(24) > 1
+    plain = timeblocks.track_time_parallel(cfg, sig, iq, chans, 400, 4,
+                                           handoff_iters=1, mesh=mesh,
+                                           epoch_loop=True)
+    for want in (flat, plain):
+        for f in ("abs_sample", "blksize", "active_until"):
+            assert np.array_equal(getattr(got, f), getattr(want, f)), f
+        for f in _SUMS:
+            a, b = getattr(want, f), getattr(got, f)
+            assert np.abs(a - b).max() <= RTOL_TRACK * (np.abs(a).max()
+                                                        + 1.0), f
+        for f in ("carr_freq", "code_freq"):
+            assert np.abs(getattr(got, f) - getattr(want, f)).max() <= 2e-3, f
+

@@ -41,7 +41,8 @@ def test_host_layers_and_port_modules_import_without_jax():
         for m in mods + ["receiver", "__main__", "tracking.engine",
                          "tracking.qmboc", "tracking.multi",
                          "acquisition.pcps", "ops.correlator",
-                         "parallel.timeblocks", "runtime.profiling",
+                         "parallel.timeblocks", "parallel.mesh",
+                         "parallel.distributed", "runtime.profiling",
                          "tools.perf_correlator", "checkpoint",
                          "plotting"]:
             mod = importlib.import_module("cusdr_tpu_torch." + m)
