@@ -49,11 +49,14 @@ Phases, each of which fails the run when it fails:
    rows x 250 at 2.048 Msps, periods rolling over), glo_l1 at its preset's
    12 Msps and IF 0 (12 rows on FDMA channels -7..4, carriers to +-3.94
    MHz) and the int16 instantiation on the gps_l1ca case's record as int16
-   times 64 (12 x 250), each in both tap modes, with one block per row (every field equal to the eager loop's,
-   bit for bit) and with a thread-block cluster per row (within the
-   tolerances stated at TRACK_RTOL below); per case the count of differing
-   elements and the largest difference per field, both times and the
-   card's bound;
+   times 64 (12 x 250), and the shapes of phase 18's presets that no other
+   case runs: bds_b1i (12 x 18 008, k = 4), bds_b3i (15 rows, a cluster of
+   8: 120 blocks) and gal_e1c (pilot, 12 x 72 008, 250 epochs of 4 ms),
+   each in both tap modes, with one block per row (every field equal to
+   the eager loop's, bit for bit) and with a thread-block cluster per row
+   (within the tolerances stated at TRACK_RTOL below); per case the count
+   of differing elements and the largest difference per field, both times
+   and the card's bound;
 3f. the staged superblock kernel (each epoch's windows staged into shared
    memory by bulk copies) against its plain version, the eager loop on
    staged windows, on phase 3e's cases, held as 3e holds the fetch kernel
@@ -145,18 +148,32 @@ Phases, each of which fails the run when it fails:
    block's tail locked;
    (d) two spawned ranks (gloo, both on cuda:0) over a 2x1 ch x tb mesh:
    each rank's stitched result equal to (c)'s within the same tolerances,
-   the two ranks' equal.
+   the two ranks' equal;
+18. the six presets no earlier phase runs as shipped: gps_l5c (data only),
+   gal_e1c (pilot, 4 ms epochs), gal_e5b (pilot), bds_b1i (k = 4), bds_b2a
+   and bds_b3i (15 channels), each through ``Receiver.run`` at full width
+   (18 Msps, the preset's channels and PCPS grid) on a 12-SV (15-SV) scene
+   of 2.5-3 s (``PRESET_SCENES``): every SV acquired within 2 samples of
+   its code phase and half a coarse step of its carrier, every channel
+   locked (data and pilot prompt), one superblock-kernel launch per
+   superblock and no per-epoch launch; acquisition seconds and tracking
+   real-time factor;
+19. PVT on a non-GPS signal: the 40 s, 4.096 Msps, 6-SV B1I scene of
+   tests/test_e2e_b1i.py (D1 under NH20) through ``Receiver.run`` (the
+   superblock kernel: the E-L spacing is about a sample); fixes within
+   that test's bounds, channel 0's decoded ephemeris equal to truth at rel
+   1e-6.
 
-The scenes of phases 3e-15 are made in ten worker processes while the
-kernel checks of phases 1-3c run, and are all finished before the
+The scenes of phases 3e-19 are made in worker processes, one each, while
+the kernel checks of phases 1-3c run, and are all finished before the
 host-bound measurements (the 500-epoch loops, phase 3d) and phase 4
 start.
 
 Prints a JSON line with each kernel's numbers (launches on its path, and
-for the superblock kernel also on the other paths, phase 17's mesh among
-them; error
-against the plain version, device time, the plain version's, the card's
-bound for the same work), the card's name and power limit, and last
+for the superblock kernels also on the other paths, phase 17's mesh and
+phase 18's presets among them; error against the plain version, device
+time, the plain version's, the card's bound for the same work), the
+card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card, and
 outside a checkout of the repository.  Imports no jax and nothing of
 cusdr_tpu.
@@ -1074,6 +1091,8 @@ def superblock_checks(scenes, staged=False):
     b1c = get_config("bds_b1c", **B1C_WB)
     l2c = get_config("gps_l2c", **L2C_OVER)
     glo = get_config("glo_l1")
+    b1i, b3i, e1c = (get_config(p) for p in ("bds_b1i", "bds_b3i",
+                                             "gal_e1c"))
     # the first 255 code periods of the main record as int16, times 64
     svs, iq8, _ = scenes["main"]
     iq16 = iq8[:2 * 255 * l1.samples_per_code].astype("int16") * INT16_SCALE
@@ -1089,7 +1108,12 @@ def superblock_checks(scenes, staged=False):
         (0, "glo_l1 FDMA, k = -7..4, IF 0", glo, scenes["glo_l1"], None,
          250, 1),
         (0, "gps_l1ca int16 (the int8 record x 64)", l1, (svs, iq16, 0.0),
-         None, 250, 1))
+         None, 250, 1),
+        # the shapes of phase 18's presets no other case runs
+        (0, "bds_b1i, k = 4", b1i, scenes["bds_b1i"], None, 250, 1),
+        (0, "bds_b3i, 15 rows", b3i, scenes["bds_b3i"], None, 250, 1),
+        (1, "gal_e1c, 4 ms epochs", e1c, scenes["gal_e1c"], None,
+         E1C_EPOCHS, 1))
     variants = (corr.STAGED_SUPERBLOCK_VARIANTS if staged
                 else corr.SUPERBLOCK_VARIANTS)
     checks = {}
@@ -1105,18 +1129,21 @@ def superblock_checks(scenes, staged=False):
 
 
 def check_main(cfg, svs, res, launches=None, tail_epochs=500,
-               pilot=False, acq_carr_tol_hz=None):
+               pilot=False, acq_carr_tol_hz=None, acq_code_tol=None):
     """Every simulated SV acquired where it was put (within
-    ``acq_carr_tol_hz``, by default two fine steps, and the DLL's
-    half-chip pull-in, or the one-sample grid of the search where a chip
-    spans under two samples), every channel in lock near its true
-    frequency (means over the last ``tail_epochs``; the pilot prompt too
-    with ``pilot``), outputs finite, ``launches`` (where given) one per
-    superblock of ``cfg.superblock_ms``.  Returns
-    (epochs, prompt SNRs, tracked and acquired carrier errors)."""
+    ``acq_carr_tol_hz``, by default two fine steps, and ``acq_code_tol``
+    samples, by default the DLL's half-chip pull-in, or the one-sample grid
+    of the search where a chip spans under two samples), every channel in
+    lock near its true frequency (means over the last ``tail_epochs``; the
+    pilot prompt too with ``pilot``), outputs finite, ``launches`` (where
+    given) one per superblock of ``cfg.superblock_ms``.  Returns (epochs,
+    prompt SNRs, tracked and acquired carrier errors)."""
     import numpy as np
     if acq_carr_tol_hz is None:
         acq_carr_tol_hz = 2 * cfg.fine_search_step
+    if acq_code_tol is None:
+        acq_code_tol = max(0.5 * cfg.sampling_freq / cfg.code_freq_basis,
+                           1.0)
     spc = cfg.samples_per_code
     acq_err = []
     got = {c[0]: c for c in res.channels}
@@ -1128,9 +1155,7 @@ def check_main(cfg, svs, res, launches=None, tail_epochs=500,
         dcp = (cp - sv.code_phase + spc / 2) % spc - spc / 2
         dfr = carr - _true_carrier(cfg, sv)
         acq_err.append(dfr)
-        if (abs(dcp) > max(0.5 * cfg.sampling_freq / cfg.code_freq_basis,
-                           1.0)
-                or abs(dfr) > acq_carr_tol_hz):
+        if abs(dcp) > acq_code_tol or abs(dfr) > acq_carr_tol_hz:
             raise AssertionError(f"PRN {sv.prn}: code phase off by {dcp} "
                                  f"samples, carrier by {dfr} Hz")
     trk = res.track
@@ -1239,7 +1264,7 @@ def eager_track(card, tag, cfg, made, res, variant, n_epochs):
 
 
 def run_path(card, tag, cfg, made, variant, pilot, tail_epochs,
-             acq_carr_tol_hz=None):
+             acq_carr_tol_hz=None, acq_code_tol=None):
     """``Receiver(cfg, "cuda").run`` on the scene ``made`` (``scene``'s
     result) with every launch count set to 0 just before it; returns the
     launches of ``variant`` and the receiver's results."""
@@ -1263,7 +1288,8 @@ def run_path(card, tag, cfg, made, variant, pilot, tail_epochs,
         raise AssertionError(f"[{tag}] launched other variants: {others}")
     n_ep, snr, fr_err, acq_err = check_main(cfg, svs, res,
                                             launches[variant], tail_epochs,
-                                            pilot, acq_carr_tol_hz)
+                                            pilot, acq_carr_tol_hz,
+                                            acq_code_tol)
     tm = res.timings
     rec_s = n_ep * sig.code_period_ms * 1e-3
     n_samp = rec_s * cfg.sampling_freq
@@ -1290,6 +1316,9 @@ def run_path(card, tag, cfg, made, variant, pilot, tail_epochs,
 MAIN_SCENE = ("gps_l1ca", {}, [1, 3, 6, 8, 11, 13, 17, 19, 22, 24, 28, 31],
               4.0)
 TIME_BLOCKS = 8
+# phases 3e, 3f: the gal_e1c bank (12 x 72 008 samples) through one
+# superblock of 4 ms epochs
+E1C_EPOCHS = 250
 # gal_e5a at 50 dB-Hz: the preset's GLRT threshold of 4.5 over 15 x 1 ms
 # non-coherent rounds of the primary code leaves most 45 dB-Hz SVs below
 # it (metrics 3.5-4.8 on the card), as tests/test_e2e_l5c.py notes for L5
@@ -2820,6 +2849,163 @@ def mesh_path(card: str, made, flat_rt):
     return n_step, n_tb
 
 
+# phase 18: the six presets no other phase runs as shipped, each through
+# ``Receiver.run`` at full width (18 Msps, the preset's channels and PCPS
+# grid): (preset, PRNs, seconds, C/N0 [dB-Hz], the superblock kernel of its
+# bank, the last epochs over which lock is held).  At 45 dB-Hz the GLRT
+# thresholds of gps_l5c (4.5 over 25 x 1 ms), gal_e5b (4.5 over 15 x 1 ms),
+# bds_b2a (5.0 over 15 x 1 ms) and gal_e1c (10.0 over one 4 ms period)
+# leave most SVs below them (metrics 3.3-4.6, and 6.8-10.8 at gal_e1c), in
+# the reference as in the port (ROADMAP.md Queue C), as at gal_e5a in
+# phase 6: these four run at 50 dB-Hz.  The BeiDou PRNs are MEO/IGSO ones
+# (6-58), whose D1 data carries the NH20 code the scene puts on every SV.
+# At bds_b3i the fine stage can leave an SV far off (PRN 9 acquired 182 Hz
+# off in a 1.3 s scene of these SVs, where the 15 Hz PLL settles 167 Hz
+# off, in the reference as in the port: ROADMAP.md Queue C); this scene,
+# checked in both packages on the CPU, has every SV within 25 Hz.
+PRESET_SCENES = (
+    ("gps_l5c", [1, 3, 6, 8, 11, 13, 17, 19, 22, 24, 28, 31], 3.0, 50.0,
+     "track_superblock", 500),
+    ("gal_e1c", [1, 3, 5, 7, 9, 11, 13, 19, 21, 24, 26, 30], 3.0, 50.0,
+     "track_superblock_pilot", 200),
+    ("gal_e5b", [1, 3, 5, 7, 9, 11, 13, 19, 21, 24, 26, 30], 3.0, 50.0,
+     "track_superblock_pilot", 500),
+    ("bds_b1i", [6, 9, 12, 15, 19, 22, 25, 28, 33, 37, 41, 46], 3.0, 45.0,
+     "track_superblock", 500),
+    ("bds_b2a", [19, 21, 23, 25, 27, 29, 32, 34, 36, 38, 40, 42], 3.0, 50.0,
+     "track_superblock", 500),
+    ("bds_b3i", [6, 9, 12, 14, 16, 19, 22, 25, 27, 30, 33, 37, 41, 45, 46],
+     2.5, 45.0, "track_superblock", 500),
+)
+
+
+def preset_paths(card: str, scenes):
+    """Phase 18: ``Receiver(get_config(preset), "cuda").run`` on each
+    preset of ``PRESET_SCENES`` as shipped: every SV acquired within 2
+    samples of its code phase (as tests/test_multisignal.py holds every
+    preset) and half a coarse step of its carrier, every
+    channel locked over the tail (data prompt, and the pilot prompt where
+    the preset tracks one), one superblock-kernel launch per superblock and
+    no other kernel.  Returns {preset: launches of its superblock
+    kernel}."""
+    from cusdr_tpu_torch import get_config
+    t0 = time.perf_counter()
+    launches = {}
+    for preset, _, _, _, variant, tail in PRESET_SCENES:
+        cfg = get_config(preset)
+        launches[preset], _ = run_path(
+            card, preset, cfg, scenes[preset], variant,
+            pilot=cfg.pilot_trk_flag > 0, tail_epochs=tail,
+            acq_carr_tol_hz=cfg.acq_search_step / 2, acq_code_tol=2.0)
+    log(f"[presets] phase 18 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# phase 19: the scene of tests/test_e2e_b1i.py (40 s, 4.096 Msps, 6 MEO
+# SVs at 46 dB-Hz, D1 under NH20), from the port's copies of its helpers
+def _b1i_config():
+    from cusdr_tpu_torch import get_config
+    return get_config("bds_b1i", sampling_freq=4.096e6, if_freq=7000.0,
+                      acq_satellite_list=tuple(range(6, 38)),
+                      acq_search_step=250.0, acq_non_coh_time=8,
+                      use_trop_corr=False, ms_to_process=40_000)
+
+
+def _bds_eph(prn, toe, *, m0, omega0):
+    """D1-named ephemeris on a BDS MEO orbit (~27 906 km), as
+    tests/test_e2e_b1i.py builds it."""
+    from cusdr_tpu_torch.io.scenario import make_gps_eph
+    g = make_gps_eph(prn, toe, m0=m0, omega0=omega0)
+    return dict(
+        SatH1=0, IODC=prn, URAI=0, WN=810, IODE=prn,
+        t_oc=toe, t_oe=toe, T_GD_1=g["T_GD"],
+        alpha0=0.0, alpha1=0.0, alpha2=0.0, alpha3=0.0,
+        beta0=0.0, beta1=0.0, beta2=0.0, beta3=0.0,
+        a0=g["a_f0"], a1=g["a_f1"], a2=0.0,
+        deltan=g["deltan"], C_uc=g["C_uc"], M_0=g["M_0"], e=g["e"],
+        C_us=g["C_us"], C_rc=g["C_rc"], C_rs=g["C_rs"],
+        sqrtA=5282.62 + (g["sqrtA"] - 5153.65),
+        i_0=g["i_0"], C_ic=g["C_ic"], omegaDot=g["omegaDot"],
+        C_is=g["C_is"], iDot=g["iDot"], omega_0=g["omega_0"],
+        omega=g["omega"],
+        # solver-facing aliases (nav/dispatch normalization)
+        a_f0=g["a_f0"], a_f1=g["a_f1"], a_f2=0.0, T_GD=g["T_GD"])
+
+
+def _bds_satpos(t, eph):
+    from cusdr_tpu_torch.constants import BDS_GM, BDS_OMEGA_E_DOT
+    from cusdr_tpu_torch.orbits.kepler import sat_pos_kepler
+    return sat_pos_kepler(t, eph, gm=BDS_GM, omega_e_dot=BDS_OMEGA_E_DOT)
+
+
+def _d1_stream(eph, frame_t0):
+    """±1 D1 bits of four frames (120 s) from signal time frame_t0."""
+    import numpy as np
+    from cusdr_tpu_torch.nav import bds_d1
+    toe_raw = int(round(eph["t_oe"] / 8.0))
+    e = dict(eph, t_oe_msb=toe_raw >> 15, t_oe_lsb=toe_raw & 0x7FFF)
+    frames = [bds_d1.encode_subframe(i + 1, e,
+                                     int(frame_t0) + 30 * f + 6 * i)
+              for f in range(4) for i in range(5)]
+    return 2 * np.concatenate(frames).astype(np.int8) - 1
+
+
+def b1i_scene_job():
+    """The B1I PVT scene, made in a worker process of the scene pool.
+    Returns (scenario, int8 I/Q, seconds it took)."""
+    from cusdr_tpu_torch.io.scenario import make_generic_scenario
+    from cusdr_tpu_torch.io.synth import quantize_iq_int8, synthesize_if
+    from cusdr_tpu_torch.signals.defs import get_signal
+    cfg = _b1i_config()
+    sig = get_signal("bds_b1i")
+    t0 = time.perf_counter()
+    scn = make_generic_scenario(
+        cfg, sig, eph_factory=_bds_eph, satpos_fn=_bds_satpos,
+        # a D1 frame: five 6 s subframes
+        nav_stream_fn=_d1_stream, frame_period_s=30.0, n_svs=6,
+        duration_s=40.0, cn0_dbhz=46.0, prn_pool=range(6, 38))
+    samples = quantize_iq_int8(
+        synthesize_if(cfg, sig, scn.svs, num_ms=40_500, seed=9))
+    return scn, samples, time.perf_counter() - t0
+
+
+# tests/test_e2e_b1i.py's keys of the decoded ephemeris, held to truth at
+# rel 1e-6 (and 1e-9 absolute)
+B1I_EPH_KEYS = ("e", "sqrtA", "M_0", "omega_0", "i_0", "omega", "t_oe")
+
+
+def pvt_b1i(card: str, made):
+    """Phase 19: PVT on a non-GPS signal, the B1I scene through
+    ``Receiver.run`` on the card (at 4.096 Msps the E-L spacing is about a
+    sample: the superblock kernel, not the gather path): one launch per
+    superblock, fixes within tests/test_e2e_b1i.py's bounds, channel 0's
+    decoded D1 ephemeris equal to truth at rel 1e-6.  Returns the
+    superblock-kernel launches."""
+    from cusdr_tpu_torch.nav.dispatch import decode_channel
+    from cusdr_tpu_torch.signals.defs import get_signal
+    cfg = _b1i_config()
+    scn, samples, made_s = made
+    log(f"[pvt-b1i] scene: 6 SVs, {len(samples) // 2} samples at "
+        f"{cfg.sampling_freq / 1e6:g} Msps, made in {made_s:.1f} s")
+    res = _run_sequential("pvt-b1i", cfg, samples, "track_superblock")
+    _check_fixes("pvt-b1i", card, scn, res, "test_e2e_b1i", 5, 20.0, 60.0)
+    eph, _, sow = decode_channel(res.track, 0, cfg, get_signal("bds_b1i"))
+    prn = res.track.prns[0]
+    if eph is None:
+        raise AssertionError(f"[pvt-b1i] PRN {prn}: no ephemeris decoded")
+    truth = scn.eph_by_prn[prn]
+    off = {k: (eph[k], truth[k]) for k in B1I_EPH_KEYS
+           if abs(eph[k] - truth[k]) > 1e-6 * abs(truth[k]) + 1e-9}
+    if off:
+        raise AssertionError(f"[pvt-b1i] PRN {prn}: decoded ephemeris "
+                             f"against truth: {off}")
+    n = _superblocks(cfg, res.track.i_p.shape[1])
+    log(f"[pvt-b1i] on {card}: channel 0 (PRN {prn}) decoded D1 ephemeris "
+        f"equal to truth at rel 1e-6 in {', '.join(B1I_EPH_KEYS)} (SOW "
+        f"{sow:g}); {n} track_superblock launches (one per superblock)")
+    return n
+
+
 def _kernel_json(name, launches, checks):
     """One kernel's entry of the JSON line: ``ms`` / ``plain_ms`` /
     ``bound_ms`` at the first shape listed for it (its path's, the preset's
@@ -2904,22 +3090,23 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
-    # the scenes of phases 3e-15 (up to a few minutes of numpy each) are
+    # the scenes of phases 3e-19 (up to a few minutes of numpy each) are
     # made in worker processes, one each, while phases 1-3c run; all are
     # finished before phase 3e, so no scene work overlaps a receiver run
+    jobs = dict(pvt=(pvt_scene_job,), l5=(l5_scene_job,),
+                b1i_pvt=(b1i_scene_job,), main=(scene_job, *MAIN_SCENE),
+                b1c_gather=(scene_job, *B1C_GATHER_SCENE),
+                e5a=(scene_job, *E5A_SCENE), b1c=(scene_job, *B1C_SCENE),
+                glo_l1=(scene_job, *GLO_L1_SCENE),
+                l2c_preset=(l2c_preset_scene_job,),
+                glo_l2=(scene_job, *GLO_L2_SCENE), l2c=(l2c_scene_job,),
+                **{preset: (scene_job, preset, {}, prns, sec, cn0)
+                   for preset, prns, sec, cn0, _, _ in PRESET_SCENES})
     pool = ProcessPoolExecutor(
-        max_workers=10, mp_context=multiprocessing.get_context("spawn"))
+        max_workers=len(jobs),
+        mp_context=multiprocessing.get_context("spawn"))
     try:
-        jobs = dict(main=pool.submit(scene_job, *MAIN_SCENE),
-                    b1c_gather=pool.submit(scene_job, *B1C_GATHER_SCENE),
-                    pvt=pool.submit(pvt_scene_job),
-                    l5=pool.submit(l5_scene_job),
-                    e5a=pool.submit(scene_job, *E5A_SCENE),
-                    b1c=pool.submit(scene_job, *B1C_SCENE),
-                    glo_l1=pool.submit(scene_job, *GLO_L1_SCENE),
-                    l2c_preset=pool.submit(l2c_preset_scene_job),
-                    glo_l2=pool.submit(scene_job, *GLO_L2_SCENE),
-                    l2c=pool.submit(l2c_scene_job))
+        jobs = {name: pool.submit(*job) for name, job in jobs.items()}
         smi = environment()
         build()
         checks = {}
@@ -2931,7 +3118,7 @@ def main() -> int:
         t0 = time.perf_counter()
         scenes = {name: job.result() for name, job in jobs.items()}
         log(f"[scenes] waited {time.perf_counter() - t0:.1f} s for the "
-            "scenes of phases 3e-15")
+            "scenes of phases 3e-19")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     # host-bound measurements run with no scene work beside them
@@ -2977,6 +3164,8 @@ def main() -> int:
     gather = gather_path(smi, scenes["b1c_gather"])
     cli_path(smi, scenes)
     mesh_step, mesh_tb = mesh_path(smi, scenes["main"], tp_rt)
+    preset_launches = preset_paths(smi, scenes)
+    b1i_launches = pvt_b1i(smi, scenes["b1i_pvt"])
     missing = [name for name in checks if not launches.get(name)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
@@ -2995,8 +3184,14 @@ def main() -> int:
             # passes), and the sharded tracking step (one per shard)
             entry["launches_mesh"] = mesh_tb
             entry["launches_mesh_step"] = mesh_step
+            # phase 19: the B1I PVT scene
+            entry["launches_bds_b1i_pvt"] = b1i_launches
         elif entry["name"] == "track_superblock_staged":
             entry["launches_glo_l2_per_block"] = glo_launches[2]
+        for preset, _, _, _, variant, _ in PRESET_SCENES:
+            if entry["name"] == variant:
+                # phase 18: the preset as shipped
+                entry[f"launches_{preset}"] = preset_launches[preset]
         if entry["name"] in multi_launches[0]:
             # phase 14: the bank's launches in track_multi and run_multi
             entry["launches_track_multi"] = multi_launches[0][entry["name"]]

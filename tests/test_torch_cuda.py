@@ -6,7 +6,11 @@ every cluster size on ragged rows, bit for bit across two launches, and
 its wrapper's refusals); the two superblock kernels (one launch per superblock, windows
 fetched or staged into shared memory) against their plain version, the
 eager epoch loop, at the gps_l1ca, gal_e5a and bds_b1c WB shapes (the staged
-one also at gps_l2c CL's); and ``track_superblock`` on the card against the
+one also at gps_l2c CL's) and at the shapes of three presets no other case
+runs (bds_b1i's k = 4, bds_b3i's 15 rows, gal_e1c's 72 008-sample pilot rows
+of 4 ms), on locked channels with a cluster per row within chip_smoke.py's
+phase 3e tolerances and with one block per row bit for bit; and
+``track_superblock`` on the card against the
 CPU (gps_l1ca, gal_e5a with its pilot bank, the flat 96-row time-parallel
 bank, the per-block path).  The int16 instantiations of the four kernels
 on the receiver's path (``correlate_bank``, ``correlate_windows`` and the
@@ -297,6 +301,9 @@ def _assert_tracks_close(got, want, exact):
     ("gps_l1ca", {}, 8, 20),                      # the 96-row flat bank
     ("gal_e5a", {}, 1, 40),                       # pilot, 12 x 18 008
     ("bds_b1c", dict(pilot_trk_flag=2), 1, 12),   # dual pilot, 15 x 180 008
+    ("bds_b1i", {}, 1, 40),                       # 12 x 18 008, k = 4
+    ("bds_b3i", {}, 1, 40),                       # 15 x 18 008, k = 1
+    ("gal_e1c", {}, 1, 20),                       # pilot, 12 x 72 008, 4 ms
 ])
 def test_superblock_kernel_matches_eager_loop(cuda, signal, over, n_blocks,
                                               n_epochs, interp_taps):
@@ -633,6 +640,9 @@ L2C_CL = dict(sampling_freq=2.048e6, if_freq=7000.0, pilot_trk_flag=1,
     ("gal_e5a", {}, 1, 40),                       # pilot, 12 x 18 008
     ("bds_b1c", dict(pilot_trk_flag=2), 1, 12),   # dual pilot, 15 x 180 008
     ("gps_l2c", L2C_CL, 1, 12),                   # long pilot, 5 x 40 968
+    ("bds_b1i", {}, 1, 40),                       # 12 x 18 008, k = 4
+    ("bds_b3i", {}, 1, 40),                       # 15 x 18 008, k = 1
+    ("gal_e1c", {}, 1, 20),                       # pilot, 12 x 72 008, 4 ms
 ])
 def test_staged_superblock_kernel_matches_eager_loop(cuda, signal, over,
                                                      n_blocks, n_epochs,
@@ -683,9 +693,10 @@ def test_staged_superblock_kernel_matches_eager_loop(cuda, signal, over,
     assert slow[-4] == n_epochs - 1 and not slow[:-4].any(), slow
 
 
-def _locked_bank(signal, over, n_ch, n_epochs, cn0_dbhz, dev):
+def _locked_bank(signal, over, n_ch, n_epochs, cn0_dbhz, dev, staged=True):
     """``n_ch`` SVs of ``signal`` synthesized at ``cn0_dbhz``, and the bank
-    tracking them from their true code phases and carriers."""
+    tracking them from their true code phases and carriers (on staged
+    windows, or with ``staged=False`` fetched in the kernel)."""
     from cusdr_tpu_torch.io.synth import (SynthSV, quantize_iq_int8,
                                           synthesize_if)
     cfg, sig = get_config(signal, **over), get_signal(signal)
@@ -700,7 +711,9 @@ def _locked_bank(signal, over, n_ch, n_epochs, cn0_dbhz, dev):
         seed=3))
     channels = [(sv.prn, cfg.if_freq + sv.doppler_hz, int(sv.code_phase))
                 for sv in svs]
-    params = _staged(engine.make_track_params(cfg, sig))
+    params = engine.make_track_params(cfg, sig)
+    if staged:
+        params = _staged(params)
     dops = [sv.doppler_hz for sv in svs]
     tabs, ptabs = (None if t is None else torch.from_numpy(t).to(dev)
                    for t in engine.build_replica_tables(cfg, sig, params,
@@ -711,10 +724,42 @@ def _locked_bank(signal, over, n_ch, n_epochs, cn0_dbhz, dev):
     return torch.from_numpy(iq).to(dev), tabs, ptabs, state, params
 
 
-@pytest.mark.parametrize("signal,over,n_ch,n_epochs,cn0", [
+# locked banks: (signal, overrides, rows, epochs, C/N0 [dB-Hz])
+LOCKED_BANKS = [
     ("gps_l1ca", {}, 12, 40, 45.0),
     ("gal_e5a", {}, 12, 40, 50.0),
-])
+    ("bds_b1i", {}, 12, 40, 45.0),                # k = 4
+    ("bds_b3i", {}, 15, 40, 45.0),                # 15 rows, a cluster of 8
+    ("gal_e1c", {}, 12, 20, 45.0),                # pilot, 72 008, 4 ms
+]
+
+
+@pytest.mark.parametrize("signal,over,n_ch,n_epochs,cn0", LOCKED_BANKS)
+def test_superblock_cluster_holds_phase_3e_tolerances(cuda, signal, over,
+                                                      n_ch, n_epochs, cn0):
+    """On locked channels the superblock kernel (windows fetched in the
+    kernel) with a cluster per row stays within phase 3e's tolerances of
+    the eager loop over the whole superblock, and with one block per row
+    equals it bit for bit."""
+    iq, tables, ptables, state, params = _locked_bank(
+        signal, over, n_ch, n_epochs, cn0, cuda, staged=False)
+    end = torch.full((n_ch,), iq.shape[0] // 2, device=cuda)
+    args = (iq, 0, tables, ptables, state, params, n_epochs, end)
+    want = engine.track_superblock_epochs(*args)
+    assert corr.cluster_size(n_ch) > 1
+    for cluster in (None, 1):
+        new, packed = corr.track_superblock_bank(
+            iq, 0, tables, ptables, *engine.pack_state(state), end,
+            n_epochs, params, up_margin=engine.UP_MARGIN, cluster=cluster)
+        torch.cuda.synchronize()
+        got = engine._finish_bank(engine.unpack_state(*new), packed)
+        if cluster == 1:
+            _assert_tracks_close(got, want, exact=True)
+        else:
+            _assert_within_phase_3e(got, want)
+
+
+@pytest.mark.parametrize("signal,over,n_ch,n_epochs,cn0", LOCKED_BANKS)
 def test_staged_superblock_cluster_holds_phase_3e_tolerances(
         cuda, signal, over, n_ch, n_epochs, cn0):
     """On locked channels the staged kernel with a cluster per row stays

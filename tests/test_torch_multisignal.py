@@ -44,6 +44,30 @@ from test_torch_threads import few_torch_threads  # noqa: F401 (autouse)
 SUM_RTOL = 2e-4
 
 
+def assert_acquisition_as_reference(got, ref):
+    """The same PRNs searched and detected, and on the detected ones the
+    same code phases and carriers, exactly."""
+    assert np.array_equal(got.prns, ref.prns)
+    assert np.array_equal(got.detected, ref.detected)
+    det = ref.detected
+    assert np.array_equal(got.code_phase[det], ref.code_phase[det])
+    assert np.array_equal(got.carr_freq[det], ref.carr_freq[det])
+
+
+def assert_sums_close(got, ref, names=("i_p",), n_epochs=None):
+    """The port's tracking against the reference's over their first
+    ``n_epochs`` epochs (all by default): ``abs_sample`` equal and each sum
+    in ``names`` within SUM_RTOL·(max|ref| + 1) (the f32 sums are added in
+    other orders; the loops are the same f64 arithmetic)."""
+    ep = slice(0, n_epochs)
+    assert np.array_equal(got.abs_sample[:, ep], ref.abs_sample[:, ep])
+    for name in names:
+        a, b = getattr(ref, name)[:, ep], getattr(got, name)[:, ep]
+        assert a.shape == b.shape, name
+        assert np.abs(b - a).max() <= SUM_RTOL * (np.abs(a).max() + 1.0), \
+            name
+
+
 def _overrides(name):
     """The overrides ``_setup`` gives the reference's preset."""
     case = CASES[name]
@@ -131,8 +155,7 @@ def test_tracking_locks(scene):
     if gather:
         assert_loop_close(port_trk, ref_trk, cfg.sampling_freq)
     else:
-        scale = np.abs(ref_trk.i_p).max() + 1.0
-        assert np.abs(port_trk.i_p - ref_trk.i_p).max() <= SUM_RTOL * scale
+        assert_sums_close(port_trk, ref_trk)
     tail = case["epochs"] // 2
     for c, sv in enumerate(svs):
         ip = np.abs(port_trk.i_p[c, -tail:]).mean()
@@ -163,10 +186,7 @@ def test_b1c_wideband_qmboc_tracking():
     ref = j_track(cfg, sig, iq, chans, n_epochs=40)
     res = t_track(t_get_config("bds_b1c", **over), t_get_signal("bds_b1c"),
                   iq, chans, "cpu", n_epochs=40)
-    assert np.array_equal(res.abs_sample, ref.abs_sample)
-    for name in ("i_p", "pilot_ip"):
-        a, b = getattr(ref, name), getattr(res, name)
-        assert np.abs(b - a).max() <= SUM_RTOL * (np.abs(a).max() + 1.0)
+    assert_sums_close(res, ref, ("i_p", "pilot_ip"))
     ip = np.abs(res.i_p[0, -15:]).mean()
     qp = np.abs(res.q_p[0, -15:]).mean()
     assert ip > 3 * qp
