@@ -52,9 +52,12 @@ Phases, each of which fails the run when it fails:
    times 64 (12 x 250), and the shapes of phase 18's presets that no other
    case runs: bds_b1i (12 x 18 008, k = 4), bds_b3i (15 rows, a cluster of
    8: 120 blocks) and gal_e1c (pilot, 12 x 72 008, 250 epochs of 4 ms),
-   each in both tap modes, with one block per row (every field equal to
-   the eager loop's, bit for bit) and with a thread-block cluster per row
-   (within the tolerances stated at TRACK_RTOL below); per case the count
+   and gps_l1ca banks of 17, 32, 33, 34, 40, 64, 66 and 67 rows (the main
+   record's SVs repeated, 100 epochs: clusters of 4, 2 and 1 at sizes
+   first run with phase 20), each in both tap modes, with one block per
+   row (every field equal to the eager loop's, bit for bit) and with a
+   thread-block cluster per row (within the tolerances stated at
+   TRACK_RTOL below); per case the count
    of differing elements and the largest difference per field, both times
    and the card's bound;
 3f. the staged superblock kernel (each epoch's windows staged into shared
@@ -162,7 +165,23 @@ Phases, each of which fails the run when it fails:
    tests/test_e2e_b1i.py (D1 under NH20) through ``Receiver.run`` (the
    superblock kernel: the E-L spacing is about a sample); fixes within
    that test's bounds, channel 0's decoded ephemeris equal to truth at rel
-   1e-6.
+   1e-6;
+20. the gps_l1ca main path at the preset's own size: 60.5 s at 18 Msps of
+   make_gps_scenario's 8-SV sky at 46 dB-Hz, synthesized on the card
+   (``card_if``: io/synth.py's signal model in torch, chunk by chunk) into
+   an int8 record of 2.178e9 elements (past 2^31) written to a file; (b)
+   ``python -m cusdr_tpu_torch run --no-plots --timing`` on the file at
+   the preset as shipped (every SV acquired, every channel locked, >= 100
+   fixes with a 3-D error of mean < 15 m and max < 50 m; the process's
+   wall time, stage seconds and peak resident memory), and its resume with
+   ``--skip-acquisition`` (equal trkResults.npz); (c) ``Receiver.run`` on
+   the record in this process (troposphere correction off: the scene has
+   none), the same gates and one superblock-kernel launch per superblock,
+   the card's peak memory; then the record x 64 as int16: channels, states
+   and fixes equal, sums 64 times; (d) ``time_blocks`` 2, 4, 5, 8 and 9 on
+   the flat bank (16-72 rows: clusters of 8, 4, 2, 2 and 1) and 4 and 8 on
+   the per-block path: every block's tail locked, prompt signs as (c)'s,
+   the fix bounds, one launch per pass.
 
 The scenes of phases 3e-19 are made in worker processes, one each, while
 the kernel checks of phases 1-3c run, and are all finished before the
@@ -170,9 +189,10 @@ host-bound measurements (the 500-epoch loops, phase 3d) and phase 4
 start.
 
 Prints a JSON line with each kernel's numbers (launches on its path, and
-for the superblock kernels also on the other paths, phase 17's mesh and
-phase 18's presets among them; error against the plain version, device
-time, the plain version's, the card's bound for the same work), the
+for the superblock kernels also on the other paths, phase 17's mesh,
+phase 18's presets and phase 20's full-size runs among them; error
+against the plain version, device time, the plain version's, the card's
+bound for the same work), the
 card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA card, and
 outside a checkout of the repository.  Imports no jax and nothing of
@@ -190,8 +210,11 @@ from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# the port must run where jax is absent: make any jax import fail loudly
-sys.modules["jax"] = None
+if __name__ in ("__main__", "__mp_main__"):
+    # the port must run where jax is absent: make any jax import fail
+    # loudly, in the script and its scene workers (not in a test that
+    # imports the card scene helpers beside the reference)
+    sys.modules["jax"] = None
 
 # |kernel - plain| <= KERNEL_RTOL * (max|plain| + 1): the two sum 18 000-
 # 180 000 f32 products in different orders (per-thread strides and a block
@@ -1096,6 +1119,7 @@ def superblock_checks(scenes, staged=False):
     # the first 255 code periods of the main record as int16, times 64
     svs, iq8, _ = scenes["main"]
     iq16 = iq8[:2 * 255 * l1.samples_per_code].astype("int16") * INT16_SCALE
+    main_truth = truth(l1, svs)
     # (pilot banks, path, config, scene, channels, epochs, time blocks)
     cases = (
         (0, "gps_l1ca", l1, scenes["main"], None, 250, 1),
@@ -1113,7 +1137,12 @@ def superblock_checks(scenes, staged=False):
         (0, "bds_b1i, k = 4", b1i, scenes["bds_b1i"], None, 250, 1),
         (0, "bds_b3i, 15 rows", b3i, scenes["bds_b3i"], None, 250, 1),
         (1, "gal_e1c, 4 ms epochs", e1c, scenes["gal_e1c"], None,
-         E1C_EPOCHS, 1))
+         E1C_EPOCHS, 1),
+        # a bank in each cluster class at sizes the card had not run
+        # before phase 20: the main record's 12 SVs, repeated
+        *((0, f"gps_l1ca, {n} rows", l1, scenes["main"],
+           [main_truth[i % len(main_truth)] for i in range(n)],
+           CLASS_EPOCHS, 1) for n in CLASS_ROWS))
     variants = (corr.STAGED_SUPERBLOCK_VARIANTS if staged
                 else corr.SUPERBLOCK_VARIANTS)
     checks = {}
@@ -1139,25 +1168,8 @@ def check_main(cfg, svs, res, launches=None, tail_epochs=500,
     given) one per superblock of ``cfg.superblock_ms``.  Returns (epochs,
     prompt SNRs, tracked and acquired carrier errors)."""
     import numpy as np
-    if acq_carr_tol_hz is None:
-        acq_carr_tol_hz = 2 * cfg.fine_search_step
-    if acq_code_tol is None:
-        acq_code_tol = max(0.5 * cfg.sampling_freq / cfg.code_freq_basis,
-                           1.0)
-    spc = cfg.samples_per_code
-    acq_err = []
-    got = {c[0]: c for c in res.channels}
-    missing = [sv.prn for sv in svs if sv.prn not in got]
-    if missing:
-        raise AssertionError(f"SVs not acquired: {missing}")
-    for sv in svs:
-        _, carr, cp, _ = got[sv.prn]
-        dcp = (cp - sv.code_phase + spc / 2) % spc - spc / 2
-        dfr = carr - _true_carrier(cfg, sv)
-        acq_err.append(dfr)
-        if abs(dcp) > acq_code_tol or abs(dfr) > acq_carr_tol_hz:
-            raise AssertionError(f"PRN {sv.prn}: code phase off by {dcp} "
-                                 f"samples, carrier by {dfr} Hz")
+    acq_err = _check_acquired(cfg, svs, res.channels, acq_carr_tol_hz,
+                              acq_code_tol)
     trk = res.track
     n_ep = trk.i_p.shape[1]
     names = ["i_p", "q_p", "carr_freq", "code_freq"]
@@ -1183,7 +1195,36 @@ def check_main(cfg, svs, res, launches=None, tail_epochs=500,
         raise AssertionError(f"{launches} kernel launches for {n_ep} "
                              f"tracked epochs in superblocks of "
                              f"{cfg.superblock_ms} ms")
-    return n_ep, snr, fr_err, np.asarray(acq_err)
+    return n_ep, snr, fr_err, acq_err
+
+
+def _check_acquired(cfg, svs, channels, acq_carr_tol_hz=None,
+                    acq_code_tol=None):
+    """Every SV of ``svs`` among the acquired ``channels``, at its code
+    phase (within ``acq_code_tol`` samples) and carrier at sample 0
+    (within ``acq_carr_tol_hz``; defaults as ``check_main``'s).  Returns
+    the carrier errors [Hz]."""
+    import numpy as np
+    if acq_carr_tol_hz is None:
+        acq_carr_tol_hz = 2 * cfg.fine_search_step
+    if acq_code_tol is None:
+        acq_code_tol = max(0.5 * cfg.sampling_freq / cfg.code_freq_basis,
+                           1.0)
+    spc = cfg.samples_per_code
+    acq_err = []
+    got = {c[0]: c for c in channels}
+    missing = [sv.prn for sv in svs if sv.prn not in got]
+    if missing:
+        raise AssertionError(f"SVs not acquired: {missing}")
+    for sv in svs:
+        _, carr, cp, _ = got[sv.prn]
+        dcp = (cp - sv.code_phase + spc / 2) % spc - spc / 2
+        dfr = carr - _true_carrier(cfg, sv)
+        acq_err.append(dfr)
+        if abs(dcp) > acq_code_tol or abs(dfr) > acq_carr_tol_hz:
+            raise AssertionError(f"PRN {sv.prn}: code phase off by {dcp} "
+                                 f"samples, carrier by {dfr} Hz")
+    return np.asarray(acq_err)
 
 
 def _true_carrier(cfg, sv):
@@ -1319,6 +1360,11 @@ TIME_BLOCKS = 8
 # phases 3e, 3f: the gal_e1c bank (12 x 72 008 samples) through one
 # superblock of 4 ms epochs
 E1C_EPOCHS = 250
+# phases 3e, 3f: gps_l1ca banks of these rows, 100 epochs each, in the
+# cluster classes of ``cluster_size`` (4 blocks a row at 17-33 rows, 2 at
+# 34-66, 1 from 67) at sizes the card had not run before phase 20
+CLASS_ROWS = (17, 32, 33, 34, 40, 64, 66, 67)
+CLASS_EPOCHS = 100
 # gal_e5a at 50 dB-Hz: the preset's GLRT threshold of 4.5 over 15 x 1 ms
 # non-coherent rounds of the primary code leaves most 45 dB-Hz SVs below
 # it (metrics 3.5-4.8 on the card), as tests/test_e2e_l5c.py notes for L5
@@ -1366,13 +1412,15 @@ def dual_pilot_path(card: str, made):
 
 def _block_tails_locked(tag, trk, tail, pilot=False):
     """mean|I_P| / std(Q_P) over the last ``tail`` epochs of every block
-    and channel (and the pilot prompt's with ``pilot``): all above 3."""
+    and channel (and the pilot prompt's with ``pilot``): all above 3; every
+    channel tracking to the end.  A sequential run is one block.  Returns
+    the lowest."""
     import numpy as np
-    epb = trk.epochs_per_block
+    epb = getattr(trk, "epochs_per_block", trk.i_p.shape[1])
     worst = np.inf
     for i, q in [("i_p", "q_p")] + ([("pilot_ip", "pilot_qp")] if pilot
                                     else []):
-        for b in range(trk.n_blocks):
+        for b in range(getattr(trk, "n_blocks", 1)):
             sl = slice((b + 1) * epb - tail, (b + 1) * epb)
             snr = (np.abs(getattr(trk, i)[:, sl]).mean(axis=1)
                    / getattr(trk, q)[:, sl].std(axis=1))
@@ -1696,19 +1744,33 @@ def _run_sequential(tag, cfg, samples, variant):
 
 
 def _check_fixes(tag, card, scn, res, test, min_fixes, mean_m, max_m):
-    import numpy as np
+    """Every SV of the scenario ``scn`` acquired, and at least
+    ``min_fixes`` fixes with a 3-D error of mean below ``mean_m`` and max
+    below ``max_m``; logs them with ``res.timings``' stage seconds.
+    Returns the errors [m]."""
     missing = {sv.prn for sv in scn.svs} - {c[0] for c in res.channels}
     if missing or res.nav is None:
         raise AssertionError(f"{tag}: SVs {missing} not acquired or no "
                              "fix")
-    err = np.sqrt((np.asarray(res.nav.X) - scn.rx_ecef[0]) ** 2
-                  + (np.asarray(res.nav.Y) - scn.rx_ecef[1]) ** 2
-                  + (np.asarray(res.nav.Z) - scn.rx_ecef[2]) ** 2)
+    err = _fix_errors(scn, res.nav.X, res.nav.Y, res.nav.Z)
+    stages = ", ".join(f"{k.removesuffix('_s')} {v:.2f} s"
+                       for k, v in res.timings.items())
     log(f"[{tag}] on {card}: {len(err)} fixes, 3-D error mean "
-        f"{err.mean():.2f} m, max {err.max():.2f} m; acquisition "
-        f"{res.timings['acquisition_s']:.2f} s, tracking "
-        f"{res.timings['tracking_s']:.2f} s for "
+        f"{err.mean():.2f} m, max {err.max():.2f} m; {stages} for "
         f"{res.track.i_p.shape[1]} epochs x {len(res.channels)} channels")
+    _hold_fixes(tag, test, err, min_fixes, mean_m, max_m)
+    return err
+
+
+def _fix_errors(scn, x, y, z):
+    """3-D distances [m] of fixes from the scenario's receiver."""
+    import numpy as np
+    return np.sqrt((np.asarray(x) - scn.rx_ecef[0]) ** 2
+                   + (np.asarray(y) - scn.rx_ecef[1]) ** 2
+                   + (np.asarray(z) - scn.rx_ecef[2]) ** 2)
+
+
+def _hold_fixes(tag, test, err, min_fixes, mean_m, max_m):
     if not (len(err) >= min_fixes and err.mean() < mean_m
             and err.max() < max_m):
         raise AssertionError(f"{tag}: fixes outside the {test} bounds: "
@@ -2336,17 +2398,50 @@ def gather_path(card: str, made):
     return out
 
 
+# Runs ``python argv[2:]`` as its own child and writes that child's peak
+# resident kilobytes (its rusage's ru_maxrss) into the file argv[1]; exits
+# with its exit code.  A process forked from the smoke itself would report
+# the smoke's resident memory as its own peak (it inherits it at fork and
+# keeps it across exec), so the CLI is forked from this small one.
+_PEAK_RSS_LAUNCHER = """\
+import os, sys
+pid = os.fork()
+if pid == 0:
+    os.execv(sys.executable, [sys.executable] + sys.argv[2:])
+_, status, usage = os.wait4(pid, 0)
+with open(sys.argv[1], "w") as out:
+    out.write(str(usage.ru_maxrss))
+sys.exit(os.waitstatus_to_exitcode(status))
+"""
+
+
 def _cli(args, timeout=600):
     """``python -m cusdr_tpu_torch`` with ``args`` from the checkout;
-    raises unless it exits 0.  Returns its output."""
-    res = subprocess.run([sys.executable, "-m", "cusdr_tpu_torch", *args],
-                         cwd=ROOT, capture_output=True, text=True,
-                         timeout=timeout)
-    if res.returncode != 0:
-        raise AssertionError(f"[cli] {' '.join(args[:1])} exited "
-                             f"{res.returncode}:\n{res.stdout[-3000:]}\n"
-                             f"{res.stderr[-3000:]}")
-    return res.stdout
+    raises unless it exits 0 within ``timeout`` seconds.  Returns (its
+    standard output, wall seconds, its peak resident MB)."""
+    import os
+    import signal
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        peak = Path(tmp) / "peak_kb"
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _PEAK_RSS_LAUNCHER, str(peak), "-m",
+             "cusdr_tpu_torch", *args], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+        try:
+            text, errors = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            # the launcher and the CLI it forked
+            os.killpg(proc.pid, signal.SIGKILL)
+            text, errors = proc.communicate()
+        sec = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[cli] {' '.join(args[:1])} exited "
+                                 f"{proc.returncode} after {sec:.1f} s:\n"
+                                 f"{text[-3000:]}\n{errors[-3000:]}")
+        # ru_maxrss counts kilobytes on Linux
+        return text, sec, int(peak.read_text()) / 1024
 
 
 def _npz_differ(a, b):
@@ -2380,9 +2475,7 @@ def cli_path(card: str, scenes):
         run = ["run", "--signal", "gps_l1ca", "--file", str(rec), "--fs",
                str(cfg.sampling_freq), "--if-freq", str(cfg.if_freq),
                "--ms", str(cfg.ms_to_process), "--no-plots", "--timing"]
-        t0 = time.perf_counter()
-        text = _cli(run + ["--out", str(tmp / "d")])
-        run_s = time.perf_counter() - t0
+        text, run_s, _ = _cli(run + ["--out", str(tmp / "d")])
         files = sorted(p.name for p in (tmp / "d").iterdir())
         if files != ["acqResults.npz", "navResults.npz", "trkResults.npz"] \
                 or "TOTAL" not in text:
@@ -2406,15 +2499,10 @@ def cli_path(card: str, scenes):
             raise AssertionError(f"[cli] run and Receiver.run differ in "
                                  f"{differ}")
         nav = np.load(tmp / "d" / "navResults.npz")
-        err = np.sqrt((nav["X"] - scn.rx_ecef[0]) ** 2
-                      + (nav["Y"] - scn.rx_ecef[1]) ** 2
-                      + (nav["Z"] - scn.rx_ecef[2]) ** 2)
+        err = _fix_errors(scn, nav["X"], nav["Y"], nav["Z"])
         # the test_e2e_l1ca bounds, though the preset models a troposphere
         # the scene lacks (phase 5 runs with the correction off)
-        if not (len(err) >= 60 and err.mean() < 15.0 and err.max() < 50.0):
-            raise AssertionError(f"[cli] fixes outside the test_e2e_l1ca "
-                                 f"bounds: {len(err)}, mean {err.mean()} m, "
-                                 f"max {err.max()} m")
+        _hold_fixes("[cli]", "test_e2e_l1ca", err, 60, 15.0, 50.0)
         log(f"[cli] run on {card}: {len(err)} fixes, equal to "
             f"Receiver.run's in this process (tracking and navigation, "
             f"every element); 3-D error mean {err.mean():.2f} m, max "
@@ -2424,10 +2512,9 @@ def cli_path(card: str, scenes):
             if line.startswith(("Stage", "acquisition ", "tracking ",
                                 "navigation ", "TOTAL")):
                 log(f"[cli]   {line}")
-        t0 = time.perf_counter()
-        text = _cli(run + ["--out", str(tmp / "e"), "--skip-acquisition",
-                           str(tmp / "d" / "acqResults.npz")])
-        resume_s = time.perf_counter() - t0
+        text, resume_s, _ = _cli(run + ["--out", str(tmp / "e"),
+                                        "--skip-acquisition",
+                                        str(tmp / "d" / "acqResults.npz")])
         first = np.load(tmp / "d" / "trkResults.npz")
         again = np.load(tmp / "e" / "trkResults.npz")
         differ = [k for k in first.files
@@ -2445,10 +2532,8 @@ def cli_path(card: str, scenes):
             path = tmp / f"{signal}.bin"
             scenes[name][1][:2 * int(1.3 * fs)].tofile(path)
             sets += ["--set", f"{signal}={path}"]
-        t0 = time.perf_counter()
-        text = _cli(["run-multi", *sets, "--ms", "1000", "--out",
-                     str(tmp / "m")])
-        multi_s = time.perf_counter() - t0
+        text, multi_s, _ = _cli(["run-multi", *sets, "--ms", "1000",
+                                 "--out", str(tmp / "m")])
         for signal in ("gps_l1ca", "gal_e5a"):
             trk = np.load(tmp / "m" / f"trk_{signal}.npz")
             if trk["i_p"].shape[1] != 1000 or not (trk["blksize"] > 0).all():
@@ -3006,6 +3091,358 @@ def pvt_b1i(card: str, made):
     return n
 
 
+# phase 20: gps_l1ca at the preset's own size.  make_gps_scenario's
+# default sky (8 SVs above its 15 degree mask) over the preset's 60 s at 18
+# Msps, 60.5 s of samples so that ``Receiver.run`` tracks past the CLI's
+# 60 000 epochs, and LNAV frames over the whole record.  The interleaved
+# int8 record holds 2.178e9 elements: past 2^31 from sample 1.0737e9
+# (59.65 s), and as int16 its bytes from 29.8 s.
+FULL_SECONDS = 60.0
+FULL_RECORD_MS = 60_500
+FULL_SVS = 8
+FULL_CN0 = 46.0
+FULL_NAV_FRAMES = 4
+FULL_SEED = 20
+FULL_FIXES = 100        # from 60 s; test_e2e_l1ca asks 60 of its 40 s
+# one block count per cluster class of the scene's 8 channels: the flat
+# bank of 16, 32, 40, 64 and 72 rows (cluster_size 8, 4, 2, 2, 1); the
+# per-block path (staged windows) at 4 and 8
+FULL_FLAT_BLOCKS = (2, 4, 5, 8, 9)
+FULL_STAGED_BLOCKS = (4, 8)
+CARD_CHUNK = 1 << 24    # samples per chunk of the card synthesizer
+
+
+def full_scene():
+    """Phase 20's configuration (the gps_l1ca preset as shipped) and
+    scenario."""
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.io.scenario import make_gps_scenario
+    from cusdr_tpu_torch.signals.defs import get_signal
+    cfg = get_config("gps_l1ca")
+    return cfg, make_gps_scenario(
+        cfg, get_signal("gps_l1ca"), n_svs=FULL_SVS,
+        duration_s=FULL_SECONDS, cn0_dbhz=FULL_CN0,
+        nav_frames=FULL_NAV_FRAMES)
+
+
+def card_if(cfg, sig, svs, n0, n, device, *, noise_std=4.0, generator=None,
+            chunk=CARD_CHUNK):
+    """The signal model of cusdr_tpu_torch/io/synth.py's ``synthesize_if``
+    (data-only CDMA SVs, nav bits, Doppler rate), evaluated by
+    torch on ``device`` for samples [n0, n0 + n) of the record, ``chunk``
+    samples at a time from n0.  Yields (first sample, I, Q), f32 tensors.
+
+    As there: sample times, code and carrier phases in f64, the carrier
+    phase reduced mod 2 pi before its f32 cos and sin, each SV's amplitude
+    times its code in f64, rounded to f32 and added in SV order.  Noise,
+    N(0, ``noise_std``) per component, is drawn from ``generator``
+    (torch.randn, so not synthesize_if's numbers); with no generator there
+    is none, at the same amplitudes."""
+    import numpy as np
+    import torch
+    if (sig.pilot_code is not None or sig.data_secondary is not None
+            or sig.fdma):
+        raise ValueError(f"{sig.name}: the card synthesizer models "
+                         "data-only CDMA signals without a secondary code")
+    dev = torch.device(device)
+    fs = cfg.sampling_freq
+    two_pi = 2 * np.pi
+    nav_symbol_chips = sig.nav_symbol_ms * 1e-3 * sig.chip_rate_hz
+    models = []
+    for sv in svs:
+        if sv.stop_ms is not None:
+            raise ValueError("the card synthesizer models no stop_ms")
+        code_freq = sig.chip_rate_hz * (1.0 + sv.doppler_hz
+                                        / sig.carrier_freq_hz)
+        elems = sig.data_code(sv.prn)
+        models.append(dict(
+            sv=sv,
+            amp=float(np.sqrt(10 ** (sv.cn0_dbhz / 10.0) * 2
+                              * noise_std ** 2 / fs)),
+            step=code_freq / fs, carrier_hz=cfg.if_freq + sv.doppler_hz,
+            epc=len(elems) // sig.code_length_chips,
+            elems=torch.as_tensor(elems, device=dev).float(),
+            bits=None if sv.nav_bits is None
+            else torch.as_tensor(sv.nav_bits, device=dev)))
+    for a in range(n0, n0 + n, chunk):
+        b = min(a + chunk, n0 + n)
+        idx = torch.arange(a, b, dtype=torch.float64, device=dev)
+        t = idx / fs
+        if generator is None:
+            acc_i = torch.zeros(b - a, dtype=torch.float32, device=dev)
+            acc_q = torch.zeros_like(acc_i)
+        else:
+            acc_i, acc_q = noise_std * torch.randn(
+                (2, b - a), generator=generator, device=dev)
+        for m in models:
+            sv = m["sv"]
+            chip = (idx - sv.code_phase) * m["step"]
+            if sv.doppler_rate != 0.0:
+                chip = chip + (0.5 * sig.chip_rate_hz * sv.doppler_rate
+                               / sig.carrier_freq_hz) * t * t
+            chip = chip.clamp_min(0.0)
+            theta = (two_pi * m["carrier_hz"]) * t + sv.carrier_phase
+            if sv.doppler_rate != 0.0:
+                theta = theta + (np.pi * sv.doppler_rate) * t * t
+            # numpy's mod: fmod, then the divisor's sign
+            theta = torch.fmod(theta, two_pi)
+            theta32 = torch.where(theta < 0, theta + two_pi, theta).float()
+            elem = torch.floor(chip * m["epc"]).long()
+            vals = m["elems"][elem % len(m["elems"])]
+            if m["bits"] is not None:
+                bit = torch.floor(chip / nav_symbol_chips).long().clamp(
+                    0, len(m["bits"]) - 1)
+                vals = vals * m["bits"][bit]
+            base = vals.double() * m["amp"]
+            acc_i += (base * torch.cos(theta32).double()).float()
+            acc_q += (base * torch.sin(theta32).double()).float()
+        yield a, acc_i, acc_q
+
+
+def card_quantize(i, q):
+    """``io/synth.quantize_iq_int8`` of I + jQ: rounded half to even,
+    clipped to +-127, interleaved int8."""
+    import torch
+    return torch.stack([x.round().clamp(-127, 127) for x in (i, q)],
+                       dim=1).to(torch.int8).reshape(-1)
+
+
+def card_record(cfg, sig, svs, num_ms, seed, device="cuda"):
+    """``num_ms`` of the scene as an interleaved int8 record (a host numpy
+    array), synthesized on ``device`` by ``card_if`` with noise from a
+    generator seeded with ``seed``."""
+    import numpy as np
+    import torch
+    n = int(round(num_ms * cfg.sampling_freq * 1e-3))
+    out = np.empty(2 * n, np.int8)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for a, i, q in card_if(cfg, sig, svs, 0, n, device, generator=gen):
+        out[2 * a:2 * (a + len(i))] = card_quantize(i, q).cpu().numpy()
+    return out
+
+
+def _first_code_start(cfg, sig, sv):
+    """The sample at which ``sv``'s first whole code period starts, the
+    code phase acquisition finds, for an SV whose ``code_phase`` counts
+    from the start of its nav frame, far before sample 0, as
+    make_gps_scenario's do."""
+    step = sig.chip_rate_hz * (1.0 + sv.doppler_hz
+                               / sig.carrier_freq_hz) / cfg.sampling_freq
+    return (sv.code_phase * step) % sig.code_length_chips / step
+
+
+def _full_cli(card, cfg, scn, rec, tmp):
+    """Phase 20 (b): ``run --no-plots --timing`` on the record file at the
+    preset as shipped, then again with ``--skip-acquisition``."""
+    import numpy as np
+    from cusdr_tpu_torch import checkpoint
+    run = ["run", "--signal", "gps_l1ca", "--file", str(rec), "--no-plots",
+           "--timing"]
+    text, sec, rss = _cli(run + ["--out", str(tmp / "d")])
+    trk = checkpoint.load_tracking(tmp / "d" / "trkResults.npz", cfg)
+    missing = {sv.prn for sv in scn.svs} - set(trk.prns)
+    if missing:
+        raise AssertionError(f"[full-cli] SVs not acquired: {missing}\n"
+                             f"{text}")
+    worst = _block_tails_locked("full-cli", trk, 500)
+    nav = np.load(tmp / "d" / "navResults.npz")
+    err = _fix_errors(scn, nav["X"], nav["Y"], nav["Z"])
+    log(f"[full-cli] run on {card}: {len(trk.prns)} channels (PRN "
+        f"{trk.prns}) x {trk.i_p.shape[1]} epochs, every one locked "
+        f"(lowest mean|I_P|/std(Q_P) over the last 500 epochs "
+        f"{worst:.1f}); {len(err)} fixes, 3-D error mean {err.mean():.2f} "
+        f"m, max {err.max():.2f} m with the preset's troposphere "
+        f"correction; {sec:.1f} s for the process, peak resident "
+        f"{rss:.0f} MB")
+    for line in text.splitlines():
+        if line.startswith(("Stage", "acquisition ", "tracking ",
+                            "navigation ", "TOTAL")):
+            log(f"[full-cli]   {line}")
+    _hold_fixes("[full-cli]", "test_e2e_l1ca", err, FULL_FIXES, 15.0, 50.0)
+    text, resume_s, resume_rss = _cli(
+        run + ["--out", str(tmp / "e"), "--skip-acquisition",
+               str(tmp / "d" / "acqResults.npz")])
+    differ = _npz_differ(tmp / "d" / "trkResults.npz",
+                         tmp / "e" / "trkResults.npz")
+    if "acquisition reused" not in text or differ:
+        raise AssertionError(f"[full-cli] resumed run: fields {differ} "
+                             f"differ\n{text}")
+    log(f"[full-cli] run --skip-acquisition on {card}: trkResults.npz "
+        f"equal in every field and element; {resume_s:.1f} s for the "
+        f"process, peak resident {resume_rss:.0f} MB")
+
+
+def full_size_path(card: str):
+    """Phase 20: the gps_l1ca main path at the preset's own size.
+    (a) ``full_scene`` synthesized on the card (``card_record``) and
+    written to a file; (b) ``_full_cli``; (c) ``Receiver(cfg).run`` on the
+    int8 record in this process with the troposphere correction off (the
+    scene models none): every SV acquired, every channel locked, one
+    superblock-kernel launch per superblock, fixes within the bounds; then
+    the record x 64 as int16 (data_type "int16"): channels, states, block
+    sizes and fixes equal, sums 64 times; (d) the flat time-parallel bank
+    at ``FULL_FLAT_BLOCKS`` through ``Receiver.run`` and the per-block
+    path at ``FULL_STAGED_BLOCKS``: each block's tail locked, prompt signs
+    as (c)'s, fixes within the bounds, one launch per pass.  Returns the
+    launches of (c)'s int8 and int16 runs, {blocks: flat launches} and the
+    per-block runs' staged launches."""
+    import dataclasses
+    import tempfile
+    import types
+    import numpy as np
+    import torch
+    from cusdr_tpu_torch.ops.correlator import (LAUNCHES, cluster_size,
+                                                reset_launches)
+    from cusdr_tpu_torch.parallel.timeblocks import track_time_parallel
+    from cusdr_tpu_torch.receiver import Receiver, nav_solve
+    from cusdr_tpu_torch.signals.defs import get_signal
+    t_phase = time.perf_counter()
+    preset, scn = full_scene()
+    sig = get_signal("gps_l1ca")
+    t0 = time.perf_counter()
+    iq8 = card_record(preset, sig, scn.svs, FULL_RECORD_MS, FULL_SEED)
+    made_s = time.perf_counter() - t0
+    n_samp = len(iq8) // 2
+    log(f"[full] scene: {FULL_SVS} SVs (PRN "
+        f"{[sv.prn for sv in scn.svs]}) at {FULL_CN0:g} dB-Hz, "
+        f"{n_samp} samples at {preset.sampling_freq / 1e6:g} Msps "
+        f"({len(iq8)} int8 elements, past 2^31 from sample "
+        f"{2 ** 30}), synthesized on the card in {made_s:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        rec = tmp / "gps_l1ca_60s.bin"
+        t0 = time.perf_counter()
+        iq8.tofile(rec)
+        log(f"[full] {rec.stat().st_size} bytes written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        _full_cli(card, preset, scn, rec, tmp)
+
+    # (c) in this process, sequential
+    cfg = preset.replace(use_trop_corr=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    seq = Receiver(cfg).run(iq8)
+    n_ep = seq.track.i_p.shape[1]
+    n_sb = _superblocks(cfg, n_ep)
+    _only("full", dict(LAUNCHES), "track_superblock", n_sb)
+    launches = LAUNCHES["track_superblock"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    acq_err = _check_acquired(cfg, [
+        dataclasses.replace(sv, code_phase=_first_code_start(cfg, sig, sv))
+        for sv in scn.svs], seq.channels)
+    worst = _block_tails_locked("full", seq.track, 500)
+    _check_fixes("full", card, scn, seq, "test_e2e_l1ca", FULL_FIXES, 15.0,
+                 50.0)
+    tm = seq.timings
+    total = sum(tm.values())
+    rec_s = n_samp / cfg.sampling_freq
+    log(f"[full] Receiver.run on {card}: {len(seq.channels)} channels x "
+        f"{n_ep} epochs; acquisition {tm['acquisition_s']:.3f} s (carrier "
+        f"at most {np.abs(acq_err).max():.1f} Hz off), tracking "
+        f"{tm['tracking_s']:.3f} s = {n_ep * 1e-3 / tm['tracking_s']:.3f}x "
+        f"real time, navigation {tm['navigation_s']:.3f} s; end to end "
+        f"{total:.3f} s = {rec_s / total:.3f}x real time; {n_sb} "
+        f"track_superblock launches (one per superblock); lowest "
+        f"mean|I_P|/std(Q_P) over the last 500 epochs {worst:.1f}; card "
+        f"peak {peak:.0f} MiB allocated")
+
+    iq16 = np.multiply(iq8, INT16_SCALE, dtype=np.int16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res16 = Receiver(cfg.replace(data_type="int16")).run(iq16)
+    del iq16
+    _only("full-int16", dict(LAUNCHES), "track_superblock[int16]", n_sb)
+    launches16 = LAUNCHES["track_superblock[int16]"]
+    peak16 = torch.cuda.max_memory_allocated() / 2 ** 20
+    if res16.channels != seq.channels:
+        raise AssertionError(f"[full-int16] acquired {res16.channels}, "
+                             f"the int8 record {seq.channels}")
+    _int16_differs("full-int16", res16.track, seq.track)
+    nav_differ = [f for f in ("X", "Y", "Z", "dt", "curr_meas_sample")
+                  if not np.array_equal(getattr(res16.nav, f),
+                                        getattr(seq.nav, f))]
+    if nav_differ:
+        raise AssertionError(f"[full-int16] fixes differ in {nav_differ}")
+    tm16 = res16.timings
+    log(f"[full-int16] Receiver.run on {card}, the record x {INT16_SCALE} "
+        f"as int16: channels, states, block sizes and {len(seq.nav.X)} "
+        f"fixes equal to the int8 run's, sums {INT16_SCALE} times, 0 "
+        f"elements differ; tracking {tm16['tracking_s']:.3f} s = "
+        f"{n_ep * 1e-3 / tm16['tracking_s']:.3f}x real time (int8 "
+        f"{n_ep * 1e-3 / tm['tracking_s']:.3f}x); {n_sb} "
+        f"track_superblock[int16] launches; card peak {peak16:.0f} MiB")
+
+    # (d) time-parallel
+    passes = cfg.handoff_iters + 1
+    n_ch = len(seq.channels)
+    flat, classes = {}, set()
+    for n_blocks in FULL_FLAT_BLOCKS:
+        tag = f"full-tb{n_blocks}"
+        cluster = cluster_size(n_blocks * n_ch)
+        classes.add(cluster)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res = Receiver(cfg.replace(time_blocks=n_blocks)).run(iq8)
+        _only(tag, dict(LAUNCHES), "track_superblock", passes)
+        flat[n_blocks] = LAUNCHES["track_superblock"]
+        _time_parallel_full(card, tag, scn, res, seq,
+                            f"flat bank of {n_blocks * n_ch} rows, a "
+                            f"cluster of {cluster}", passes)
+        log(f"[{tag}] card peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
+    if classes != {1, 2, 4, 8}:
+        raise AssertionError(f"[full] the flat banks ran clusters of "
+                             f"{sorted(classes)}, not one of each class")
+    spc = cfg.samples_per_code
+    max_phase = max(ch[2] for ch in seq.channels)
+    staged = 0
+    for n_blocks in FULL_STAGED_BLOCKS:
+        tag = f"full-blocks{n_blocks}"
+        tb = cfg.replace(time_blocks=n_blocks)
+        n_tp = (n_samp - max_phase - 2 * spc) // spc // n_blocks * n_blocks
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        trk = track_time_parallel(tb, sig, iq8, seq.channels, n_tp,
+                                  n_blocks, device="cuda",
+                                  fetch_in_kernel=False)
+        trk_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nav = nav_solve(tb, sig, trk)
+        nav_s = time.perf_counter() - t0
+        _only(tag, dict(LAUNCHES), "track_superblock_staged", passes)
+        staged += LAUNCHES["track_superblock_staged"]
+        res = types.SimpleNamespace(
+            channels=seq.channels, track=trk, nav=nav,
+            timings=dict(tracking_s=trk_s, navigation_s=nav_s))
+        _time_parallel_full(card, tag, scn, res, seq,
+                            f"per-block path, {n_blocks * n_ch} rows, "
+                            f"staged windows", passes)
+    log(f"[full] phase 20 in {time.perf_counter() - t_phase:.1f} s")
+    return launches, launches16, flat, staged
+
+
+def _time_parallel_full(card, tag, scn, res, seq, what, passes):
+    """Phase 20 (d), one run: every block's tail locked, prompt signs as
+    the sequential run ``seq``'s, fixes within the bounds."""
+    trk = res.track
+    n_ep = trk.i_p.shape[1]
+    worst = _block_tails_locked(tag, trk, 200)
+    share = _signs_as_sequential(tag, trk, seq.track)
+    _check_fixes(tag, card, scn, res, "test_e2e_l1ca", FULL_FIXES, 15.0,
+                 50.0)
+    log(f"[{tag}] {what} on {card}: {trk.n_blocks} blocks x "
+        f"{trk.epochs_per_block} epochs x {passes} passes in "
+        f"{res.timings['tracking_s']:.3f} s = "
+        f"{n_ep * 1e-3 / res.timings['tracking_s']:.3f}x real time; lowest "
+        f"block-tail mean|I_P|/std(Q_P) {worst:.1f}; lowest per-block sign "
+        f"agreement with the sequential run {share:.4f}")
+
+
 def _kernel_json(name, launches, checks):
     """One kernel's entry of the JSON line: ``ms`` / ``plain_ms`` /
     ``bound_ms`` at the first shape listed for it (its path's, the preset's
@@ -3166,6 +3603,7 @@ def main() -> int:
     mesh_step, mesh_tb = mesh_path(smi, scenes["main"], tp_rt)
     preset_launches = preset_paths(smi, scenes)
     b1i_launches = pvt_b1i(smi, scenes["b1i_pvt"])
+    full_seq, full_int16, full_flat, full_staged = full_size_path(smi)
     missing = [name for name in checks if not launches.get(name)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
@@ -3186,8 +3624,17 @@ def main() -> int:
             entry["launches_mesh_step"] = mesh_step
             # phase 19: the B1I PVT scene
             entry["launches_bds_b1i_pvt"] = b1i_launches
+            # phase 20: the 60 s record in this process, sequential, and
+            # the flat bank by time blocks (passes)
+            entry["launches_full_size"] = full_seq
+            entry["launches_full_size_flat"] = {
+                str(b): n for b, n in full_flat.items()}
+        elif entry["name"] == "track_superblock[int16]":
+            entry["launches_full_size"] = full_int16
         elif entry["name"] == "track_superblock_staged":
             entry["launches_glo_l2_per_block"] = glo_launches[2]
+            # phase 20: the per-block runs of the 60 s record
+            entry["launches_full_size_per_block"] = full_staged
         for preset, _, _, _, variant, _ in PRESET_SCENES:
             if entry["name"] == variant:
                 # phase 18: the preset as shipped

@@ -9,7 +9,8 @@ eager epoch loop, at the gps_l1ca, gal_e5a and bds_b1c WB shapes (the staged
 one also at gps_l2c CL's) and at the shapes of three presets no other case
 runs (bds_b1i's k = 4, bds_b3i's 15 rows, gal_e1c's 72 008-sample pilot rows
 of 4 ms), on locked channels with a cluster per row within chip_smoke.py's
-phase 3e tolerances and with one block per row bit for bit; and
+phase 3e tolerances and with one block per row bit for bit, also on
+gps_l1ca banks of 17-67 rows in the cluster classes 4, 2 and 1; and
 ``track_superblock`` on the card against the
 CPU (gps_l1ca, gal_e5a with its pilot bank, the flat 96-row time-parallel
 bank, the per-block path).  The int16 instantiations of the four kernels
@@ -693,10 +694,12 @@ def test_staged_superblock_kernel_matches_eager_loop(cuda, signal, over,
     assert slow[-4] == n_epochs - 1 and not slow[:-4].any(), slow
 
 
-def _locked_bank(signal, over, n_ch, n_epochs, cn0_dbhz, dev, staged=True):
+def _locked_bank(signal, over, n_ch, n_epochs, cn0_dbhz, dev, staged=True,
+                 n_rows=None):
     """``n_ch`` SVs of ``signal`` synthesized at ``cn0_dbhz``, and the bank
     tracking them from their true code phases and carriers (on staged
-    windows, or with ``staged=False`` fetched in the kernel)."""
+    windows, or with ``staged=False`` fetched in the kernel); with
+    ``n_rows`` the bank has that many rows, the SVs repeated."""
     from cusdr_tpu_torch.io.synth import (SynthSV, quantize_iq_int8,
                                           synthesize_if)
     cfg, sig = get_config(signal, **over), get_signal(signal)
@@ -709,12 +712,13 @@ def _locked_bank(signal, over, n_ch, n_epochs, cn0_dbhz, dev, staged=True):
     iq = quantize_iq_int8(synthesize_if(
         cfg, sig, svs, num_ms=int((n_epochs + 4) * sig.code_period_ms),
         seed=3))
+    rows = [svs[r % n_ch] for r in range(n_rows or n_ch)]
     channels = [(sv.prn, cfg.if_freq + sv.doppler_hz, int(sv.code_phase))
-                for sv in svs]
+                for sv in rows]
     params = engine.make_track_params(cfg, sig)
     if staged:
         params = _staged(params)
-    dops = [sv.doppler_hz for sv in svs]
+    dops = [sv.doppler_hz for sv in rows]
     tabs, ptabs = (None if t is None else torch.from_numpy(t).to(dev)
                    for t in engine.build_replica_tables(cfg, sig, params,
                                                         channels, dops))
@@ -778,6 +782,45 @@ def test_staged_superblock_cluster_holds_phase_3e_tolerances(
     _assert_within_phase_3e(
         engine._finish_bank(engine.unpack_state(*new), packed), want)
     assert not slow.any()
+
+
+# gps_l1ca banks in the cluster classes the card had not run before
+# chip_smoke.py's phase 20 (12 SVs repeated): (rows, the cluster
+# ``cluster_size`` picks, the largest bank of the class)
+CLASS_BANKS = [(17, 4, 33), (33, 4, 33), (34, 2, 66), (40, 2, 66),
+               (66, 2, 66), (67, 1, None)]
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("n_rows,cluster,last", CLASS_BANKS)
+def test_superblock_kernels_in_every_cluster_class(cuda, n_rows, cluster,
+                                                   last, staged):
+    """Both superblock kernels on a locked bank of ``n_rows`` rows: with
+    the cluster ``cluster_size`` picks within phase 3e's tolerances of the
+    eager loop, with one block per row equal to it bit for bit; the staged
+    one reads every epoch from its prefetched stages."""
+    assert corr.cluster_size(n_rows) == cluster
+    if last is not None:
+        assert corr.cluster_size(last) == cluster
+        assert corr.cluster_size(last + 1) == cluster // 2
+    iq, tables, ptables, state, params = _locked_bank(
+        "gps_l1ca", {}, 12, 40, 45.0, cuda, staged=staged, n_rows=n_rows)
+    end = torch.full((n_rows,), iq.shape[0] // 2, device=cuda)
+    args = (iq, 0, tables, ptables, state, params, 40, end)
+    want = engine.track_superblock_epochs(*args)
+    bank = (corr.track_superblock_staged_bank if staged
+            else corr.track_superblock_bank)
+    for size in (None, 1):
+        res = bank(iq, 0, tables, ptables, *engine.pack_state(state), end,
+                   40, params, up_margin=engine.UP_MARGIN, cluster=size)
+        torch.cuda.synchronize()
+        got = engine._finish_bank(engine.unpack_state(*res[0]), res[1])
+        if size == 1:
+            _assert_tracks_close(got, want, exact=True)
+        else:
+            _assert_within_phase_3e(got, want)
+        if staged:
+            assert not res[2].any()
 
 
 def test_staged_superblock_wrapper_rejects_what_the_kernel_cannot_take(cuda):
