@@ -34,7 +34,10 @@ Phases, each of which fails the run when it fails:
 3d. the per-epoch profile of the eager loop ``track_superblock_epochs``
    (launches, wall, device and correlator time, idle share) and the
    per-superblock profile of ``track_superblock`` on the superblock kernel
-   (staging, copy to the card, launch, drain) from
+   (staging into a fresh and into a reused page-locked buffer, the
+   blocking and the non-blocking copy to the card, launch, drain, and on
+   the main path's bank ``engine.track``'s steady-state host milliseconds
+   per superblock and the card's busy share over 16 superblocks) from
    cusdr_tpu_torch/runtime/profiling.py, for the 12-row bank of each path
    and the 96-row time-parallel bank, and (in a process of its own, as for
    the first bank) on the staged superblock kernel for the 96-row per-block
@@ -181,7 +184,20 @@ Phases, each of which fails the run when it fails:
    and fixes equal, sums 64 times; (d) ``time_blocks`` 2, 4, 5, 8 and 9 on
    the flat bank (16-72 rows: clusters of 8, 4, 2, 2 and 1) and 4 and 8 on
    the per-block path: every block's tail locked, prompt signs as (c)'s,
-   the fix bounds, one launch per pass.
+   the fix bounds, one launch per pass;
+21. ``engine.track``'s pipelined superblock loop (through
+   ``Receiver.track``: each superblock staged into one of two reused,
+   page-locked host buffers and copied to the card on a side stream while
+   the card tracks the previous one) against ``sync_track``, a synchronous
+   loop on the same window plan (a fresh buffer, a blocking copy and a
+   synchronisation per superblock), the lock gate off: on phase 4's
+   record, phase 20's 60 s record as int8 and as int16 x 64, and phase 4's
+   record in 400 superblocks of 10 ms; the loops run in turns (sync,
+   pipelined, pipelined, sync), every field of every run equal to the
+   first's, element for element; each run's tracking seconds, real-time
+   factor, host milliseconds per superblock (also less the seconds of the
+   TrackResults built at the end) and the card's busy share (CUDA events
+   around each ``track_superblock`` call over the run's span).
 
 The scenes of phases 3e-19 are made in worker processes, one each, while
 the kernel checks of phases 1-3c run, and are all finished before the
@@ -1626,13 +1642,15 @@ def profiles(card: str):
         profile_superblock)
     out = []
     # a superblock as ``track`` cuts it (1000 ms), and one pass of the
-    # 96-row flat bank over phase 9's record
-    for cfg, n_blocks, n_epochs in (
-            (get_config("gps_l1ca"), 1, 1000),
-            (get_config("gps_l1ca"), TIME_BLOCKS, 499),
-            (get_config("gal_e5a"), 1, 1000),
-            (get_config("bds_b1c", **B1C_WB), 1, 100)):
-        p = profile_superblock(cfg, "cuda", n_epochs, n_blocks=n_blocks)
+    # 96-row flat bank over phase 9's record; ``track`` pipelined on the
+    # main path's bank (and on it again in a process of its own, below)
+    for cfg, n_blocks, n_epochs, n_sb in (
+            (get_config("gps_l1ca"), 1, 1000, 8),
+            (get_config("gps_l1ca"), TIME_BLOCKS, 499, 0),
+            (get_config("gal_e5a"), 1, 1000, 0),
+            (get_config("bds_b1c", **B1C_WB), 1, 100, 0)):
+        p = profile_superblock(cfg, "cuda", n_epochs, n_blocks=n_blocks,
+                               n_superblocks=n_sb)
         log(f"[profile] on {card}: {format_superblock_profile(p)}")
         out.append(p)
     # the first bank again in a process of its own: in this one, some
@@ -3285,8 +3303,9 @@ def full_size_path(card: str):
     at ``FULL_FLAT_BLOCKS`` through ``Receiver.run`` and the per-block
     path at ``FULL_STAGED_BLOCKS``: each block's tail locked, prompt signs
     as (c)'s, fixes within the bounds, one launch per pass.  Returns the
-    launches of (c)'s int8 and int16 runs, {blocks: flat launches} and the
-    per-block runs' staged launches."""
+    launches of (c)'s int8 and int16 runs, {blocks: flat launches}, the
+    per-block runs' staged launches and (c)'s (config, int8 record,
+    channels)."""
     import dataclasses
     import tempfile
     import types
@@ -3423,7 +3442,7 @@ def full_size_path(card: str):
                             f"per-block path, {n_blocks * n_ch} rows, "
                             f"staged windows", passes)
     log(f"[full] phase 20 in {time.perf_counter() - t_phase:.1f} s")
-    return launches, launches16, flat, staged
+    return launches, launches16, flat, staged, (cfg, iq8, seq.channels)
 
 
 def _time_parallel_full(card, tag, scn, res, seq, what, passes):
@@ -3441,6 +3460,137 @@ def _time_parallel_full(card, tag, scn, res, seq, what, passes):
         f"{n_ep * 1e-3 / res.timings['tracking_s']:.3f}x real time; lowest "
         f"block-tail mean|I_P|/std(Q_P) {worst:.1f}; lowest per-block sign "
         f"agreement with the sequential run {share:.4f}")
+
+
+# phase 21: the loops in turns on each record, and the superblock length
+# of the run that shakes out the staging ring's reuse (400 superblocks of
+# phase 4's record)
+PIPE_TURNS = ("sync", "pipelined", "pipelined", "sync")
+PIPE_SHORT_MS = 10
+
+
+def sync_track(cfg, sig, samples_iq, channels, device, n_epochs=None):
+    """Phase 21's yardstick: ``engine.track`` with the lock gate off, as a
+    synchronous loop.  The same window plan (``engine.superblock_windows``)
+    and, per superblock, a fresh buffer (``engine.stage_superblock``)
+    copied to the card by a blocking ``.to(device)``, one
+    ``engine.track_superblock`` call and a synchronisation before its
+    outputs are read.  Returns a TrackResults."""
+    import numpy as np
+    import torch
+    from cusdr_tpu_torch.tracking import engine
+    device = torch.device(device)
+    params = engine.make_track_params(cfg, sig)
+    samples_iq = np.ascontiguousarray(samples_iq)
+    spc = cfg.samples_per_code
+    total = len(samples_iq) // 2
+    max_phase = max(ch[2] for ch in channels)
+    if n_epochs is None:
+        n_epochs = int((total - max_phase - 2 * spc) // spc)
+    dops = engine.code_dopplers(cfg, sig, channels)
+    ctabs, ptabs = engine.build_tables(cfg, sig, params, channels, dops)
+    tables = torch.from_numpy(ctabs).to(device)
+    ptables = None if ptabs is None else torch.from_numpy(ptabs).to(device)
+    state = engine.init_channel_state(channels, sig.chip_rate_hz, device,
+                                      dopplers=dops,
+                                      carrier_freq_hz=sig.carrier_freq_hz)
+    chunks = []
+    for cur, sb_start, buf_len in engine.superblock_windows(
+            n_epochs, min(n_epochs, engine.superblock_epochs(cfg, sig)),
+            spc, min(ch[2] for ch in channels), max_phase, params.blk):
+        iq = torch.from_numpy(engine.stage_superblock(
+            samples_iq, sb_start, buf_len)).to(device)
+        state, outs = engine.track_superblock(iq, sb_start, tables, ptables,
+                                              state, params, cur, total)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        chunks.append([x.cpu().numpy() for x in outs])
+    merged = {name: np.concatenate([c[i] for c in chunks], axis=0).T
+              for i, name in enumerate(engine.TrackOutputs._fields)}
+    return engine.TrackResults([ch[0] for ch in channels], merged, cfg)
+
+
+def pipeline_path(card: str, made, seq_res, full):
+    """Phase 21: ``Receiver.track`` (``engine.track``'s pipelined loop)
+    against ``sync_track`` with the lock gate off, on phase 4's record,
+    phase 20's 60 s record as int8 and as int16 x 64, and phase 4's record
+    at ``superblock_ms`` = ``PIPE_SHORT_MS`` (400 superblocks, the ring's
+    two slots reused 200 times each): the loops run in turns
+    (``PIPE_TURNS``), every field of every run equal, element for element,
+    to the first synchronous run's.  Prints each run's tracking seconds,
+    real-time factor, host milliseconds per superblock and the card's busy
+    share; returns {case: {loop: [per-turn numbers]}}."""
+    import numpy as np
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.receiver import Receiver
+    from cusdr_tpu_torch.runtime.profiling import busy_track
+    from cusdr_tpu_torch.signals.defs import get_signal
+    t_phase = time.perf_counter()
+    main = get_config("gps_l1ca").replace(lock_detect=False)
+    full_cfg, iq8, full_channels = full
+    full_cfg = full_cfg.replace(lock_detect=False)
+    cases = (("main", main, made[1], seq_res.channels),
+             (f"main-{PIPE_SHORT_MS}ms",
+              main.replace(superblock_ms=PIPE_SHORT_MS), made[1],
+              seq_res.channels),
+             ("full", full_cfg, iq8, full_channels),
+             ("full-int16", full_cfg.replace(data_type="int16"), None,
+              full_channels))
+    out = {}
+    for tag, cfg, iq, channels in cases:
+        if iq is None:
+            iq = np.multiply(iq8, INT16_SCALE, dtype=np.int16)
+        sig = get_signal(cfg.signal)
+        rx = Receiver(cfg, "cuda")
+        loops = dict(
+            sync=lambda: sync_track(cfg, sig, iq, channels, "cuda"),
+            pipelined=lambda: rx.track(iq, channels))
+        want, rows = None, {"sync": [], "pipelined": []}
+        for loop in PIPE_TURNS:
+            res, run = busy_track(loops[loop])
+            if want is None:
+                want = res
+            n_diff, _, worst, beyond = _compare_tracks(res, want)
+            if n_diff:
+                raise AssertionError(
+                    f"[pipeline-{tag}] the {loop} loop differs from the "
+                    f"synchronous one in {n_diff} elements: {worst}, "
+                    f"{beyond}")
+            n_ep, sec, n_sb = (res.i_p.shape[1], run["seconds"],
+                               run["superblocks"])
+            rows[loop].append(dict(
+                run, realtime=n_ep * sig.code_period_ms * 1e-3 / sec,
+                host_ms_per_superblock=sec * 1e3 / n_sb,
+                loop_ms_per_superblock=(sec - run["results_s"]) * 1e3
+                / n_sb, busy_share=run["busy_ms"] / run["span_ms"]))
+        out[tag] = rows
+        del iq, loops
+
+        def fmt(loop, key, spec):
+            return " / ".join(format(r[key], spec) for r in rows[loop])
+
+        log(f"[pipeline-{tag}] on {card}: {len(channels)} channels x "
+            f"{n_ep} epochs in {n_sb} superblocks; the pipelined loop equal "
+            f"to the synchronous one in every field, element for element "
+            f"({len(PIPE_TURNS)} runs in turns: {', '.join(PIPE_TURNS)}); "
+            f"tracking s sync {fmt('sync', 'seconds', '.3f')}, pipelined "
+            f"{fmt('pipelined', 'seconds', '.3f')}; real time sync "
+            f"{fmt('sync', 'realtime', '.2f')}x, pipelined "
+            f"{fmt('pipelined', 'realtime', '.2f')}x; host ms per "
+            f"superblock sync {fmt('sync', 'host_ms_per_superblock', '.3f')}"
+            f", pipelined "
+            f"{fmt('pipelined', 'host_ms_per_superblock', '.3f')}, of "
+            f"which the loop (less TrackResults: sync "
+            f"{fmt('sync', 'results_s', '.3f')}, pipelined "
+            f"{fmt('pipelined', 'results_s', '.3f')} s) sync "
+            f"{fmt('sync', 'loop_ms_per_superblock', '.3f')}, pipelined "
+            f"{fmt('pipelined', 'loop_ms_per_superblock', '.3f')}; card "
+            f"busy sync {fmt('sync', 'busy_share', '.1%')}, pipelined "
+            f"{fmt('pipelined', 'busy_share', '.1%')} (track_superblock "
+            f"{fmt('pipelined', 'busy_ms', '.1f')} ms of "
+            f"{fmt('pipelined', 'span_ms', '.1f')})")
+    log(f"[pipeline] phase 21 in {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def _kernel_json(name, launches, checks):
@@ -3603,7 +3753,10 @@ def main() -> int:
     mesh_step, mesh_tb = mesh_path(smi, scenes["main"], tp_rt)
     preset_launches = preset_paths(smi, scenes)
     b1i_launches = pvt_b1i(smi, scenes["b1i_pvt"])
-    full_seq, full_int16, full_flat, full_staged = full_size_path(smi)
+    full_seq, full_int16, full_flat, full_staged, full = full_size_path(
+        smi)
+    pipeline = pipeline_path(smi, scenes["main"], seq_res, full)
+    del full
     missing = [name for name in checks if not launches.get(name)]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
@@ -3645,7 +3798,8 @@ def main() -> int:
             entry["launches_run_multi"] = multi_launches[1][entry["name"]]
     print(json.dumps({"perf_correlator": tool, "profiles": profiled,
                       "gather_path": gather,
-                      "multi_stream_spans_ms": multi_launches[2]}))
+                      "multi_stream_spans_ms": multi_launches[2],
+                      "pipeline": pipeline}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -133,6 +133,17 @@ def device_trace(trace_dir: Optional[str]):
     prof.export_chrome_trace(str(out / "trace.json"))
 
 
+def _bank_channels(cfg, sig):
+    """``make_bank``'s channels: ``cfg.num_channels`` of the preset's PRNs
+    spread over the Doppler band (an FDMA signal's on their frequency
+    channels' carriers)."""
+    n_ch = cfg.num_channels
+    prns = list(cfg.acq_satellite_list)[:n_ch]
+    fdma = sig.fdma_spacing_hz if sig.fdma else 0.0
+    return [(prn, cfg.if_freq + fdma * prn + 500.0 * (j - n_ch // 2),
+             149 * j) for j, prn in enumerate(prns)]
+
+
 def make_bank(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
               seed: int = 0):
     """A channel bank at ``cfg``'s width on random int8 samples:
@@ -148,10 +159,7 @@ def make_bank(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
     n_samp = (n_blocks * n_epochs + 6) * spc
     iq = torch.from_numpy(
         rng.integers(-16, 17, 2 * n_samp).astype(np.int8)).to(device)
-    prns = list(cfg.acq_satellite_list)[:n_ch]
-    fdma = sig.fdma_spacing_hz if sig.fdma else 0.0
-    channels = [(prn, cfg.if_freq + fdma * prn + 500.0 * (j - n_ch // 2),
-                 149 * j) for j, prn in enumerate(prns)]
+    channels = _bank_channels(cfg, sig)
     dops = engine.code_dopplers(cfg, sig, channels)
     ctabs, ptabs = engine.build_tables(cfg, sig, params, channels, dops)
     tables = torch.from_numpy(ctabs).to(device)
@@ -201,7 +209,8 @@ def profile_epochs(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
                idle_share=None)
     if not on_card:
         return res
-    launches, device_ms, corr_ms = _device_profile(run, _CORRELATOR_KERNELS)
+    launches, device_ms, corr_ms, _ = _device_profile(run,
+                                                      _CORRELATOR_KERNELS)
     if device_ms is None:
         return res                  # the trace held no device time
     res.update(
@@ -223,44 +232,70 @@ def _wall_ms(fn) -> float:
 def _device_profile(run, kernel_names):
     """One call of ``run`` under ``torch.profiler``: (device kernels and
     copies in the trace, their device milliseconds, the device milliseconds
-    of the kernels named in ``kernel_names``); (0, None, None) when the
-    trace holds no device time, as it can for a run as short as one launch
-    in a process some minutes old.  ``run`` ends with the device's work
-    done."""
+    of the kernels named in ``kernel_names``, the trace's device span in
+    milliseconds: from the start of its first device event to the end of
+    its last); (0, None, None, None) when the trace holds no device time,
+    as it can for a run as short as one launch in a process some minutes
+    old.  ``run`` ends with the device's work done."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in events)
     if device_us <= 0:
-        return 0, None, None
+        return 0, None, None, None
     named_us = sum(e.self_device_time_total for e in events
                    if any(k in e.key for k in kernel_names))
-    return sum(e.count for e in events), device_us / 1e3, named_us / 1e3
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    span_ms = ((max(r.end for r in spans) - min(r.start for r in spans))
+               / 1e3 if spans else None)
+    return (sum(e.count for e in events), device_us / 1e3, named_us / 1e3,
+            span_ms)
 
 
 def profile_superblock(cfg, device, n_epochs: int, n_blocks: int = 1,
                        repeats: int = 3, seed: int = 0,
-                       fetch_in_kernel: bool = True) -> dict:
+                       fetch_in_kernel: bool = True,
+                       n_superblocks: int = 8) -> dict:
     """Profile one superblock of ``n_epochs`` epochs the way
     ``engine.track`` runs it, step by step on the bank ``make_bank``
     builds, each step ended with the device's work done; with
-    ``fetch_in_kernel`` False on the staged superblock kernel.
+    ``fetch_in_kernel`` False on the staged superblock kernel.  Then, for
+    one block of the fetch kernel's bank, ``engine.track`` itself over
+    superblocks of ``n_epochs`` back to back.
 
     Returns a dict: ``rows``, ``epochs``, ``buffer_bytes`` and, in host
     milliseconds (each of ``repeats`` runs after a warm-up), ``stage_ms``
-    (``engine.stage_superblock``: the zeroed buffer and the copy of the
-    record into it), ``h2d_ms`` (the buffer's copy to the device),
-    ``track_ms`` (``engine.track_superblock``: one launch of the
+    (``engine.stage_superblock`` into a fresh zeroed buffer, as the loop
+    staged before its ring), ``stage_ring_ms`` (into a reused buffer,
+    page-locked on a card, as ``track``'s ring stages), ``h2d_ms`` (the
+    fresh buffer's blocking copy to the device), ``h2d_ring_ms`` (the
+    reused buffer's copy, non-blocking from page-locked memory, waited
+    for), ``track_ms`` (``engine.track_superblock``: one launch of the
     superblock kernel on a card, the eager loop on the CPU) and
-    ``drain_ms`` (the outputs' copy to the host); on a CUDA device also
+    ``drain_ms`` (the outputs' copy to the host); ``pipelined_ms`` (the
+    steady-state host milliseconds per superblock of ``engine.track`` with
+    the lock gate off on a record of random samples: the wall time of
+    ``2·n_superblocks`` superblocks less that of ``n_superblocks``, over
+    ``n_superblocks``; None for a bank of several blocks or the staged
+    kernel, which ``track`` does not run, and with ``n_superblocks`` 0);
+    on a CUDA device also
     ``device_ms`` (the card's time per ``track_superblock`` call: CUDA
     events over five calls made back to back, which keep the card busy
     throughout), ``idle_share`` (1 − ``device_ms`` over the least
-    ``track_ms``) and, from ``torch.profiler`` where its trace holds the
-    call, ``launches`` (device kernels and copies of ``track_superblock``)
-    and ``kernel_ms`` (the superblock kernel alone); None for these on the
-    CPU."""
+    ``track_ms``), ``busy_share`` (in the longer ``track`` run, the card's
+    time between CUDA events around each ``track_superblock`` call over
+    the run's span between events before and after it, the host's
+    set-up and ``TrackResults`` included: ``busy_track``)
+    and, from ``torch.profiler`` where its trace holds the call,
+    ``launches`` (device kernels and copies of ``track_superblock``),
+    ``kernel_ms`` (the superblock kernel alone) and ``busy_share_traced``
+    (in a traced run of the longer ``track``, the superblock kernel's time
+    over the trace's span from its first device event to its last: the
+    loop alone, without the host's set-up before it and ``TrackResults``
+    after it); None for these on the CPU."""
     device = resolve_device(device)
     iq, tables, ptables, state, params = make_bank(cfg, device, n_blocks,
                                                    n_epochs, seed)
@@ -268,6 +303,8 @@ def profile_superblock(cfg, device, n_epochs: int, n_blocks: int = 1,
     record = iq.cpu().numpy()
     buf_len = len(record) // 2
     on_card = device.type == "cuda"
+    ring = torch.empty(2 * buf_len, dtype=iq.dtype, pin_memory=on_card)
+    ring_dev = torch.empty_like(iq)
     kept = {}
 
     def sync():
@@ -277,8 +314,15 @@ def profile_superblock(cfg, device, n_epochs: int, n_blocks: int = 1,
     def stage():
         kept["buf"] = engine.stage_superblock(record, 0, buf_len)
 
+    def stage_ring():
+        engine.stage_superblock(record, 0, buf_len, out=ring.numpy())
+
     def h2d():
         kept["iq"] = torch.from_numpy(kept["buf"]).to(device)
+        sync()
+
+    def h2d_ring():
+        ring_dev.copy_(ring, non_blocking=True)
         sync()
 
     def launch():
@@ -295,17 +339,31 @@ def profile_superblock(cfg, device, n_epochs: int, n_blocks: int = 1,
             done.synchronize()
         kept["host"] = [x.numpy() for x in host]
 
-    steps = dict(stage_ms=stage, h2d_ms=h2d, track_ms=run, drain_ms=drain)
+    steps = dict(stage_ms=stage, stage_ring_ms=stage_ring, h2d_ms=h2d,
+                 h2d_ring_ms=h2d_ring, track_ms=run, drain_ms=drain)
     for fn in steps.values():                       # warm-up (and build)
         fn()
     res = dict(signal=cfg.signal, rows=int(state.abs_sample.shape[0]),
                epochs=n_epochs, fetch_in_kernel=fetch_in_kernel,
                buffer_bytes=2 * buf_len,
-               **{name: [] for name in steps}, launches=None,
-               device_ms=None, kernel_ms=None, idle_share=None)
+               **{name: [] for name in steps}, pipelined_ms=None,
+               superblocks=None, launches=None, device_ms=None,
+               kernel_ms=None, idle_share=None, busy_share=None,
+               busy_share_traced=None)
     for _ in range(repeats):
         for name, fn in steps.items():
             res[name].append(_wall_ms(fn))
+    pipelined = n_blocks == 1 and fetch_in_kernel and n_superblocks > 0
+    if pipelined:
+        track_run = _pipelined_track(cfg, device, record, n_epochs,
+                                     n_superblocks)
+        walls = {n: [] for n in (n_superblocks, 2 * n_superblocks)}
+        for _ in range(repeats):
+            for n in walls:
+                walls[n].append(_wall_ms(lambda: track_run(n)))
+        res.update(superblocks=2 * n_superblocks, pipelined_ms=(
+            min(walls[2 * n_superblocks]) - min(walls[n_superblocks]))
+            / n_superblocks)
     if not on_card:
         return res
     first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -317,11 +375,83 @@ def profile_superblock(cfg, device, n_epochs: int, n_blocks: int = 1,
     device_ms = first.elapsed_time(last) / 5
     res.update(device_ms=device_ms,
                idle_share=1.0 - device_ms / min(res["track_ms"]))
-    launches, traced_ms, kernel_ms = _device_profile(
-        run, (_SUPERBLOCK_KERNELS[fetch_in_kernel],))
+    kernel = (_SUPERBLOCK_KERNELS[fetch_in_kernel],)
+    launches, traced_ms, kernel_ms, _ = _device_profile(run, kernel)
     if traced_ms is not None:
         res.update(launches=launches, kernel_ms=kernel_ms)
+    if pipelined:
+        _, busy = busy_track(lambda: track_run(2 * n_superblocks))
+        res["busy_share"] = busy["busy_ms"] / busy["span_ms"]
+        _, traced_ms, kernel_ms, span_ms = _device_profile(
+            lambda: track_run(2 * n_superblocks), kernel)
+        if traced_ms is not None and span_ms:
+            res["busy_share_traced"] = kernel_ms / span_ms
     return res
+
+
+def busy_track(loop):
+    """Run ``loop()`` (which calls ``engine.track``) on a card with CUDA
+    events on the current stream around each ``engine.track_superblock``
+    call and before and after the run, and the host clock around the
+    ``engine.TrackResults`` it builds at the end (the C/N0 of every
+    channel's every 40 ms window).  For the run the two module attributes
+    are swapped for timed wrappers, and restored after it.  Returns (its
+    result, dict of ``seconds`` (the run's host seconds), ``results_s``
+    (of which ``TrackResults``), ``superblocks``, ``busy_ms`` (the card's
+    milliseconds between the events around each call) and ``span_ms``
+    (the card's milliseconds from the run's first event to its last))."""
+    real, real_results = engine.track_superblock, engine.TrackResults
+    spans, results_s = [], []
+
+    def timed(*args, **kw):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = real(*args, **kw)
+        b.record()
+        spans.append((a, b))
+        return out
+
+    def timed_results(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_results(*args, **kw)
+        results_s.append(time.perf_counter() - t0)
+        return out
+
+    first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    engine.track_superblock, engine.TrackResults = timed, timed_results
+    try:
+        t0 = time.perf_counter()
+        first.record()
+        res = loop()
+        last.record()
+        seconds = time.perf_counter() - t0
+    finally:
+        engine.track_superblock, engine.TrackResults = real, real_results
+    last.synchronize()
+    return res, dict(seconds=seconds, results_s=sum(results_s),
+                     superblocks=len(spans),
+                     busy_ms=sum(a.elapsed_time(b) for a, b in spans),
+                     span_ms=first.elapsed_time(last))
+
+
+def _pipelined_track(cfg, device, record, n_epochs, n_superblocks):
+    """A function of n that runs ``engine.track`` with the lock gate off
+    over n superblocks of ``n_epochs`` on ``make_bank``'s channels, the
+    record ``record`` repeated to ``2·n_superblocks`` superblocks' length
+    (and a few epochs' margin)."""
+    sig = get_signal(cfg.signal)
+    cfg = cfg.replace(lock_detect=False,
+                      superblock_ms=n_epochs * sig.code_period_ms)
+    channels = _bank_channels(cfg, sig)
+    spc = cfg.samples_per_code
+    n_samp = (2 * n_superblocks * n_epochs + 6) * spc
+    long_record = np.resize(record, 2 * n_samp)
+
+    def track_run(n):
+        return engine.track(cfg, sig, long_record, channels, device,
+                            n_epochs=n * n_epochs)
+    return track_run
 
 
 def format_superblock_profile(p: dict) -> str:
@@ -335,12 +465,21 @@ def format_superblock_profile(p: dict) -> str:
     return (f"{p['signal']}, {p['rows']} rows x {p['epochs']} epochs, "
             f"{'fetch' if p['fetch_in_kernel'] else 'staged'}, "
             f"{p['buffer_bytes'] / 1e6:.1f} MB buffer: stage "
-            f"{span('stage_ms')} ms, copy to device {span('h2d_ms')} ms, "
-            f"track_superblock {span('track_ms')} ms (device "
-            f"{f(p['device_ms'], '.3f')} ms, idle "
-            f"{f(p['idle_share'], '.1%')}; "
+            f"{span('stage_ms')} ms (reused buffer "
+            f"{span('stage_ring_ms')} ms), copy to device "
+            f"{span('h2d_ms')} ms (page-locked, non-blocking "
+            f"{span('h2d_ring_ms')} ms), track_superblock "
+            f"{span('track_ms')} ms (device {f(p['device_ms'], '.3f')} ms, "
+            f"idle {f(p['idle_share'], '.1%')}; "
             f"{f(p['launches'], 'd')} launches, superblock kernel "
-            f"{f(p['kernel_ms'], '.3f')} ms), drain {span('drain_ms')} ms")
+            f"{f(p['kernel_ms'], '.3f')} ms), drain {span('drain_ms')} ms"
+            + ("" if p["pipelined_ms"] is None else
+               f"; track pipelined {p['pipelined_ms']:.3f} ms per "
+               f"superblock over {p['superblocks']} (card busy "
+               f"{f(p['busy_share'], '.1%')} of the run, set-up and "
+               f"TrackResults included; superblock kernel "
+               f"{f(p['busy_share_traced'], '.1%')} of the trace's device "
+               f"span)"))
 
 
 def format_profile(p: dict) -> str:

@@ -744,14 +744,97 @@ def _to_host(outs: TrackOutputs, device: torch.device):
 
 
 def stage_superblock(samples_iq: np.ndarray, sb_start: int,
-                     buf_len: int) -> np.ndarray:
+                     buf_len: int, out: Optional[np.ndarray] = None
+                     ) -> np.ndarray:
     """A superblock's staging buffer: ``buf_len`` samples of the
     interleaved record (int8 or int16, kept) from sample ``sb_start``,
-    zeros past the record's end."""
-    buf = np.zeros(2 * buf_len, samples_iq.dtype)
+    zeros past the record's end.
+
+    With ``out`` (``2·buf_len`` elements of the record's dtype, reused from
+    superblock to superblock) the samples are written into it by torch's
+    copy, which splits a large copy over the intra-op threads, and only the
+    part past the record's end is zeroed; returns ``out``."""
     lo, hi = sb_start, min(sb_start + buf_len, len(samples_iq) // 2)
-    buf[:2 * (hi - lo)] = samples_iq[2 * lo:2 * hi]
-    return buf
+    if out is None:
+        buf = np.zeros(2 * buf_len, samples_iq.dtype)
+        buf[:2 * (hi - lo)] = samples_iq[2 * lo:2 * hi]
+        return buf
+    if out.shape != (2 * buf_len,) or out.dtype != samples_iq.dtype:
+        raise ValueError(f"out must be {2 * buf_len} elements of "
+                         f"{samples_iq.dtype}, got {out.shape} {out.dtype}")
+    n = 2 * max(hi - lo, 0)
+    torch.from_numpy(out[:n]).copy_(
+        torch.from_numpy(samples_iq[2 * lo:2 * lo + n]))
+    out[n:] = 0
+    return out
+
+
+class _StagingRing:
+    """``track``'s two staging slots: per slot a host buffer of ``n``
+    elements (page-locked on a card) and, on a card, a device buffer of the
+    same size, both kept for the whole loop.  ``put`` stages a superblock
+    into the next slot and copies it to the card on a side stream; the
+    launch that reads it runs on the current stream after the copy's
+    event, and ``launched`` records the event that the slot's next copy
+    waits on.  The host restages a slot only after its last copy's event:
+    the copy reads the host buffer until then.  On the CPU the device
+    buffer is the host buffer."""
+
+    def __init__(self, n: int, dtype, device: torch.device):
+        dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        self.device = device
+        self.on_card = device.type == "cuda"
+        self.host = [torch.empty(n, dtype=dtype, pin_memory=self.on_card)
+                     for _ in range(2)]
+        self.host_np = [h.numpy() for h in self.host]
+        self.dev = self.host
+        self.k = 0
+        if not self.on_card:
+            return
+        if not all(h.is_pinned() for h in self.host):
+            raise RuntimeError("the staging buffers are not page-locked")
+        self.stream = torch.cuda.Stream(device)
+        self.dev = [torch.empty(n, dtype=dtype, device=device)
+                    for _ in range(2)]
+        for d in self.dev:
+            d.record_stream(self.stream)
+        self.copied = [torch.cuda.Event() for _ in range(2)]
+        self.read = [torch.cuda.Event() for _ in range(2)]
+
+    def put(self, samples_iq: np.ndarray, sb_start: int,
+            buf_len: int) -> torch.Tensor:
+        """Stage ``buf_len`` samples from ``sb_start`` into the next slot
+        and start their copy to the device; returns the device buffer's
+        first ``2·buf_len`` elements for the launch."""
+        s = self.k = (self.k + 1) % 2
+        n = 2 * buf_len
+        if self.on_card:
+            self.copied[s].synchronize()
+        stage_superblock(samples_iq, sb_start, buf_len,
+                         out=self.host_np[s][:n])
+        if not self.on_card:
+            return self.dev[s][:n]
+        self.stream.wait_event(self.read[s])
+        with torch.cuda.stream(self.stream):
+            self.dev[s][:n].copy_(self.host[s][:n], non_blocking=True)
+            self.copied[s].record(self.stream)
+        torch.cuda.current_stream(self.device).wait_event(self.copied[s])
+        return self.dev[s][:n]
+
+    def launched(self) -> None:
+        """Mark the end, on the current stream, of the launches that read
+        the last slot ``put`` returned."""
+        if self.on_card:
+            self.read[self.k].record(torch.cuda.current_stream(self.device))
+
+
+def _host_to(device: torch.device, arr: np.ndarray) -> torch.Tensor:
+    """A small host array on ``device``: on a card from page-locked memory,
+    without blocking the host."""
+    t = torch.from_numpy(arr)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def superblock_epochs(cfg, sig: SignalDef) -> int:
@@ -764,6 +847,31 @@ def superblock_plan(n_epochs: int, per: int) -> list:
     into, ``per`` at a time from the first (the last may hold fewer)."""
     per = max(int(per), 1)
     return [min(per, n_epochs - done) for done in range(0, n_epochs, per)]
+
+
+def superblock_windows(n_epochs: int, sb_epochs: int, spc: int,
+                       min_phase0: int, max_phase: int, blk: int) -> list:
+    """Each superblock's (epochs, sb_start, buf_len) as ``track`` stages
+    it: window bounds are analytic (the per-epoch block size stays within
+    spc±2 samples of nominal), so the plan needs no device state.  Every
+    buffer has the run's shared size unless a superblock needs more."""
+    plan = []
+    done = 0
+    buf_len = None
+    for cur in superblock_plan(n_epochs, sb_epochs):
+        drift = 2 * (done + cur + 3)
+        sb_start = max(min_phase0 + done * spc - drift - spc, 0)
+        need = (max_phase + (done + cur + 3) * spc + drift + blk + 256
+                - sb_start)
+        if buf_len is None:
+            drift_end = 2 * (n_epochs + 3)
+            buf_len = _round_up(
+                max_phase - min_phase0 + (sb_epochs + 4) * spc
+                + 2 * drift_end + blk + 256, 4 * spc)
+        buf_len = max(buf_len, _round_up(need, 4 * spc))
+        plan.append((cur, sb_start, buf_len))
+        done += cur
+    return plan
 
 
 def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
@@ -847,34 +955,25 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
         drop = low_lock >= 2
         return drop if drop.any() else None
 
-    # Pipelined superblock loop: window bounds are analytic (the per-epoch
-    # block size stays within spc±2 samples of nominal), so the host never
-    # reads device state inside the loop; outputs are read back one
-    # superblock behind the dispatch.  Buffers share one size.
-    min_phase0 = min(ch[2] for ch in channels)
-    done = 0
+    # Pipelined superblock loop: the host never reads device state inside
+    # it, and outputs are read back one superblock behind the dispatch.
+    # Superblock k+1 is staged into the ring's other slot and copied to the
+    # card on a side stream while the card tracks superblock k.
+    windows = superblock_windows(n_epochs, sb_epochs, spc,
+                                 min(ch[2] for ch in channels), max_phase,
+                                 params.blk)
+    ring = _StagingRing(2 * max((w[2] for w in windows), default=0),
+                        samples_iq.dtype, device)
     pending = None
     drop_mask = None
-    buf_len = None
-    for cur in superblock_plan(n_epochs, sb_epochs):
-        drift = 2 * (done + cur + 3)
-        sb_start = max(min_phase0 + done * spc - drift - spc, 0)
-        need = (max_phase + (done + cur + 3) * spc + drift
-                + params.blk + 256 - sb_start)
-        if buf_len is None:
-            drift_end = 2 * (n_epochs + 3)
-            buf_len = _round_up(
-                max_phase - min_phase0 + (sb_epochs + 4) * spc
-                + 2 * drift_end + params.blk + 256, 4 * spc)
-        buf_len = max(buf_len, _round_up(need, 4 * spc))
-        buf = stage_superblock(samples_iq, sb_start, buf_len)
+    for cur, sb_start, buf_len in windows:
+        iq = ring.put(samples_iq, sb_start, buf_len)
         if drop_mask is not None:
-            state = state._replace(active=state.active & torch.from_numpy(
-                ~drop_mask).to(device))
-        state, outs = track_superblock(
-            torch.from_numpy(buf).to(device), sb_start, tables, ptables,
-            state, params, cur, total_samples)
-        done += cur
+            state = state._replace(
+                active=state.active & _host_to(device, ~drop_mask))
+        state, outs = track_superblock(iq, sb_start, tables, ptables, state,
+                                       params, cur, total_samples)
+        ring.launched()
         if pending is not None:
             drop_mask = drain(*pending)     # lags one superblock
         pending = (*_to_host(outs, device), cur, sb_start, buf_len)

@@ -24,7 +24,13 @@ period search on the card against the CPU.  The gather path's step (no
 kernel of ops/, bds_b1c at 4.096 Msps, NB and WB) on the card against the
 CPU from the same states; ``track_multi`` of two fast banks and a gather
 bank on three streams, each equal to a standalone ``track``; and
-``StageTimer`` holding the card's time.
+``StageTimer`` holding the card's time.  ``engine.track``'s pipelined loop
+(a ring of two page-locked staging buffers, copies on a side stream)
+against chip_smoke.py's synchronous yardstick, element for element: int8
+and int16, the fetch and the staged superblock kernel, the gather path and
+a short last superblock, and with the lock gate on, a channel dropped one
+superblock late by a drop mask sent to the card; and the ring's buffers
+page-locked.
 
 Every case needs a CUDA card and skips without one.  The file imports no
 jax, so it also runs where jax is absent:
@@ -1258,3 +1264,146 @@ def test_time_parallel_on_a_card_mesh(cuda):
         for f in ("carr_freq", "code_freq"):
             assert np.abs(getattr(got, f) - getattr(want, f)).max() <= 2e-3, f
 
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """chip_smoke.py as a module: its synchronous yardstick ``sync_track``
+    for ``engine.track``'s pipelined loop."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_pipeline", Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _staged_superblock(real):
+    """``engine.track_superblock`` on the staged superblock kernel."""
+    def staged(iq, sb_start, tables, ptables, state, params, *args):
+        return real(iq, sb_start, tables, ptables, state,
+                    dataclasses.replace(params, fetch_in_kernel=False),
+                    *args)
+    return staged
+
+
+def _no_synchronize(*args, **kw):
+    raise AssertionError("torch.cuda.synchronize inside track")
+
+
+# 12 SVs at 2.048 Msps, 760 ms, superblocks of 20 ms: 38 superblocks, the
+# last of 17 epochs; "short_last" cuts it to 7
+PIPELINE_CASES = ("int8", "int16", "staged", "gather", "short_last")
+
+
+@pytest.mark.parametrize("case", PIPELINE_CASES)
+def test_pipelined_track_equals_the_synchronous_loop(cuda, smoke, case,
+                                                     monkeypatch):
+    """``engine.track`` (staging ring, side-stream copies, events) against
+    chip_smoke.py's ``sync_track`` (a fresh buffer, a blocking copy and a
+    synchronisation per superblock) on the same window plan, the lock gate
+    off: every field equal, element for element, on the fetch and the
+    staged superblock kernel, int8 and int16, the gather path (a 0.2-chip
+    spacing, 0.4 samples) and a record whose last superblock is short;
+    the loop itself calls no ``torch.cuda.synchronize``."""
+    cfg, sig, iq, chans = _sv_scene(2.048e6, 12, 760, cn0_dbhz=48.0)
+    cfg = cfg.replace(superblock_ms=20, lock_detect=False)
+    n_epochs = None
+    if case == "int16":
+        iq = np.multiply(iq, 64, dtype=np.int16)
+    elif case == "staged":
+        monkeypatch.setattr(engine, "track_superblock",
+                            _staged_superblock(engine.track_superblock))
+    elif case == "gather":
+        cfg = cfg.replace(dll_correlator_spacing=0.2)
+    elif case == "short_last":
+        n_epochs = 35 * 20 + 7
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the gather path's warning
+        assert engine.make_track_params(cfg, sig).fast_code == (
+            case != "gather")
+        want = smoke.sync_track(cfg, sig, iq, chans, cuda, n_epochs)
+        corr.reset_launches()
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "synchronize", _no_synchronize)
+            got = engine.track(cfg, sig, iq, chans, cuda, n_epochs=n_epochs)
+    n_sb = -(-want.i_p.shape[1] // 20)
+    assert n_sb >= 36 and got.i_p.shape == want.i_p.shape
+    if n_epochs:
+        assert got.i_p.shape[1] == n_epochs
+    variant = {"int16": "track_superblock[int16]",
+               "staged": "track_superblock_staged"}.get(case,
+                                                        "track_superblock")
+    assert {k: v for k, v in LAUNCHES.items() if v} == (
+        {} if case == "gather" else {variant: n_sb})
+    assert got.status == want.status == ["T"] * 12
+    for f in engine.TrackOutputs._fields + ("active_until",):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_pipelined_track_drops_one_superblock_late_on_the_card(
+        cuda, smoke, monkeypatch):
+    """The lock gate on, on tests/test_torch_pipeline.py's drop scene
+    (PRN 7 stops transmitting at 450 ms; superblocks of 100 ms): on the
+    card as on the CPU the gate drops PRN 7 from epoch 800, one superblock
+    later than a synchronous loop would; each drop mask reaches the card
+    through ``_host_to`` as a CUDA tensor, and the loop calls no
+    ``torch.cuda.synchronize``.  Every field equals ``sync_track``'s (the
+    same plan, the gate off) element for element, but PRN 7's from epoch
+    800, where its windows are empty."""
+    from cusdr_tpu_torch.io.synth import (SynthSV, quantize_iq_int8,
+                                          synthesize_if)
+    cfg = get_config("gps_l1ca", sampling_freq=2.048e6, if_freq=7000.0,
+                     superblock_ms=100, lock_detect=True)
+    sig = get_signal("gps_l1ca")
+    svs = [SynthSV(prn=3, code_phase=200.0, doppler_hz=1200.0,
+                   cn0_dbhz=48.0),
+           SynthSV(prn=7, code_phase=900.5, doppler_hz=-800.0,
+                   cn0_dbhz=48.0, stop_ms=450.0)]
+    iq = quantize_iq_int8(synthesize_if(cfg, sig, svs, num_ms=1010, seed=5))
+    chans = [(sv.prn, cfg.if_freq + sv.doppler_hz + 3.0, int(sv.code_phase))
+             for sv in svs]
+    want = smoke.sync_track(cfg.replace(lock_detect=False), sig, iq, chans,
+                            cuda)
+    on_cpu = engine.track(cfg, sig, iq, chans, "cpu")
+    masks = []
+    host_to = engine._host_to
+
+    def recorded(device, arr):
+        masks.append(host_to(device, arr))
+        return masks[-1]
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "synchronize", _no_synchronize)
+        m.setattr(engine, "_host_to", recorded)
+        got = engine.track(cfg, sig, iq, chans, cuda)
+    assert masks and all(t.is_cuda for t in masks)
+    assert got.status == on_cpu.status == ["T", "-"]
+    assert list(got.active_until) == list(on_cpu.active_until)
+    assert got.active_until[1] == 800 and got.i_p.shape[1] > 900
+    assert np.all(got.blksize[1, :800] > 0)
+    assert not got.blksize[1, 800:].any()
+    for f in engine.TrackOutputs._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.shape == w.shape, f
+        assert np.array_equal(g[0], w[0]), f
+        assert np.array_equal(g[1, :800], w[1, :800]), f
+
+
+def test_staging_ring_is_page_locked(cuda):
+    """The ring's host buffers are page-locked and its device buffers on
+    the card; a superblock put into it reaches the card equal to a fresh
+    staging."""
+    rng = np.random.default_rng(2)
+    record = rng.integers(-100, 100, 2 * 50_000).astype(np.int8)
+    ring = engine._StagingRing(2 * 20_000, np.int8, cuda)
+    assert all(h.is_pinned() for h in ring.host)
+    assert all(d.is_cuda for d in ring.dev)
+    for sb_start, buf_len in ((0, 20_000), (45_000, 20_000), (10, 300)):
+        dev = ring.put(record, sb_start, buf_len)
+        ring.launched()
+        assert dev.is_cuda and dev.shape == (2 * buf_len,)
+        assert np.array_equal(dev.cpu().numpy(), engine.stage_superblock(
+            record, sb_start, buf_len))
