@@ -37,7 +37,8 @@ Phases, each of which fails the run when it fails:
    (staging into a fresh and into a reused page-locked buffer, the
    blocking and the non-blocking copy to the card, launch, drain, and on
    the main path's bank ``engine.track``'s steady-state host milliseconds
-   per superblock and the card's busy share over 16 superblocks) from
+   per superblock and the superblock kernel's share of the trace's device
+   span over 16 superblocks) from
    cusdr_tpu_torch/runtime/profiling.py, for the 12-row bank of each path
    and the 96-row time-parallel bank, and (in a process of its own, as for
    the first bank) on the staged superblock kernel for the 96-row per-block
@@ -196,8 +197,10 @@ Phases, each of which fails the run when it fails:
    pipelined, pipelined, sync), every field of every run equal to the
    first's, element for element; each run's tracking seconds, real-time
    factor, host milliseconds per superblock (also less the seconds of the
-   TrackResults built at the end) and the card's busy share (CUDA events
-   around each ``track_superblock`` call over the run's span).
+   ``trk.results`` span: the merge and the TrackResults built at the end)
+   and the card's busy share (``torch.profiler``'s device time over the
+   trace's device span), each run traced, its superblocks and
+   ``trk.results`` read from the span totals of its "tracking" stage.
 
 The scenes of phases 3e-19 are made in worker processes, one each, while
 the kernel checks of phases 1-3c run, and are all finished before the
@@ -3478,6 +3481,7 @@ def sync_track(cfg, sig, samples_iq, channels, device, n_epochs=None):
     outputs are read.  Returns a TrackResults."""
     import numpy as np
     import torch
+    from cusdr_tpu_torch.runtime.profiling import span
     from cusdr_tpu_torch.tracking import engine
     device = torch.device(device)
     params = engine.make_track_params(cfg, sig)
@@ -3500,14 +3504,43 @@ def sync_track(cfg, sig, samples_iq, channels, device, n_epochs=None):
             spc, min(ch[2] for ch in channels), max_phase, params.blk):
         iq = torch.from_numpy(engine.stage_superblock(
             samples_iq, sb_start, buf_len)).to(device)
-        state, outs = engine.track_superblock(iq, sb_start, tables, ptables,
-                                              state, params, cur, total)
+        with span("trk.launch"):
+            state, outs = engine.track_superblock(
+                iq, sb_start, tables, ptables, state, params, cur, total)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         chunks.append([x.cpu().numpy() for x in outs])
-    merged = {name: np.concatenate([c[i] for c in chunks], axis=0).T
-              for i, name in enumerate(engine.TrackOutputs._fields)}
-    return engine.TrackResults([ch[0] for ch in channels], merged, cfg)
+    with span("trk.results"):
+        merged = {name: np.concatenate([c[i] for c in chunks], axis=0).T
+                  for i, name in enumerate(engine.TrackOutputs._fields)}
+        return engine.TrackResults([ch[0] for ch in channels], merged, cfg)
+
+
+def _profiled_track(loop):
+    """One run of ``loop`` (``track`` or ``sync_track`` on the card) in
+    the "tracking" stage of a ``StageTimer`` under ``torch.profiler``
+    (``profiling._device_profile``).  Returns (its result, dict of
+    ``seconds`` (the stage's host seconds), ``results_s`` (the
+    ``trk.results`` span's: the merge and ``TrackResults``),
+    ``superblocks`` (``trk.launch``'s calls), ``device_ms`` (the card's
+    kernels and copies in the trace), ``span_ms`` (the trace's device span,
+    its first device event to its last) and ``busy_share``)."""
+    from cusdr_tpu_torch.runtime.profiling import StageTimer, _device_profile
+    timer = StageTimer(device="cuda")
+    kept = {}
+
+    def run():
+        with timer.stage("tracking"):
+            kept["res"] = loop()
+
+    _, device_ms, _, span_ms = _device_profile(run, ())
+    if device_ms is None or not span_ms:     # the trace held no device time
+        device_ms = span_ms = float("nan")
+    rec = timer.stages["tracking"]
+    return kept["res"], dict(
+        seconds=rec.seconds, results_s=rec.spans["trk.results"].seconds,
+        superblocks=rec.spans["trk.launch"].calls, device_ms=device_ms,
+        span_ms=span_ms, busy_share=device_ms / span_ms)
 
 
 def pipeline_path(card: str, made, seq_res, full):
@@ -3523,7 +3556,6 @@ def pipeline_path(card: str, made, seq_res, full):
     import numpy as np
     from cusdr_tpu_torch import get_config
     from cusdr_tpu_torch.receiver import Receiver
-    from cusdr_tpu_torch.runtime.profiling import busy_track
     from cusdr_tpu_torch.signals.defs import get_signal
     t_phase = time.perf_counter()
     main = get_config("gps_l1ca").replace(lock_detect=False)
@@ -3547,7 +3579,7 @@ def pipeline_path(card: str, made, seq_res, full):
             pipelined=lambda: rx.track(iq, channels))
         want, rows = None, {"sync": [], "pipelined": []}
         for loop in PIPE_TURNS:
-            res, run = busy_track(loops[loop])
+            res, run = _profiled_track(loops[loop])
             if want is None:
                 want = res
             n_diff, _, worst, beyond = _compare_tracks(res, want)
@@ -3562,7 +3594,7 @@ def pipeline_path(card: str, made, seq_res, full):
                 run, realtime=n_ep * sig.code_period_ms * 1e-3 / sec,
                 host_ms_per_superblock=sec * 1e3 / n_sb,
                 loop_ms_per_superblock=(sec - run["results_s"]) * 1e3
-                / n_sb, busy_share=run["busy_ms"] / run["span_ms"]))
+                / n_sb))
         out[tag] = rows
         del iq, loops
 
@@ -3586,8 +3618,8 @@ def pipeline_path(card: str, made, seq_res, full):
             f"{fmt('sync', 'loop_ms_per_superblock', '.3f')}, pipelined "
             f"{fmt('pipelined', 'loop_ms_per_superblock', '.3f')}; card "
             f"busy sync {fmt('sync', 'busy_share', '.1%')}, pipelined "
-            f"{fmt('pipelined', 'busy_share', '.1%')} (track_superblock "
-            f"{fmt('pipelined', 'busy_ms', '.1f')} ms of "
+            f"{fmt('pipelined', 'busy_share', '.1%')} (device time "
+            f"{fmt('pipelined', 'device_ms', '.1f')} ms of "
             f"{fmt('pipelined', 'span_ms', '.1f')})")
     log(f"[pipeline] phase 21 in {time.perf_counter() - t_phase:.1f} s")
     return out

@@ -73,8 +73,11 @@ def main(argv=None):
                    help="reuse a saved acquisition checkpoint")
     p.add_argument("--no-plots", action="store_true")
     p.add_argument("--profile", metavar="TRACE_DIR", default=None,
-                   help="write a torch.profiler trace of the tracking "
-                        "stage into this directory")
+                   help="write a torch.profiler Chrome trace of the whole "
+                        "run (acquisition through navigation: the stages' "
+                        "spans beside the card's kernels and copies) into "
+                        "this directory, then print the span totals under "
+                        "their stages")
     p.add_argument("--timing", action="store_true",
                    help="print the per-stage timing table at the end")
     p.add_argument("--time-blocks", type=int, default=None,
@@ -145,18 +148,47 @@ def main(argv=None):
 
 
 def _run(args, cfg):
-    from . import checkpoint
     from .io.ingest import read_if_file
-    from .receiver import (Receiver, acquisition_samples, as_interleaved,
-                           nav_solve)
+    from .receiver import Receiver
     from .runtime.profiling import StageTimer, device_trace
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     rx = Receiver(cfg, args.device)
-    sig = rx.sig
     samples = read_if_file(args.file, cfg)
     timer = StageTimer(sampling_freq=cfg.sampling_freq, device=rx.device)
+    with device_trace(args.profile):
+        done = _stages(args, cfg, rx, samples, timer, out)
+    if args.profile:
+        print(f"device trace written to {args.profile}/trace.json")
+        print(timer.report())
+    if done is None:
+        return 1
+    acq, channels, trk, nav = done
+    if not args.no_plots:
+        from .plotting import (plot_acquisition, plot_navigation,
+                               plot_tracking, sky_plot)
+        plot_acquisition(acq).savefig(out / "acquisition.png", dpi=110)
+        for ch in range(len(channels)):
+            plot_tracking(trk, ch, cfg).savefig(
+                out / f"tracking_ch{ch}.png", dpi=100)
+        if nav is not None:
+            plot_navigation(nav).savefig(out / "navigation.png", dpi=110)
+            sky_plot(nav, trk.prns).savefig(out / "skyplot.png", dpi=110)
+        print(f"plots written to {out}/")
+    if args.timing and not args.profile:
+        print(timer.report())
+    return 0
+
+
+def _stages(args, cfg, rx, samples, timer, out):
+    """``run``'s acquisition (or its checkpoint), tracking and navigation,
+    each in its stage of ``timer``, their results saved into ``out``.
+    Returns (acq, channels, trk, nav), or None where nothing was
+    detected."""
+    from . import checkpoint
+    from .receiver import acquisition_samples, as_interleaved, nav_solve
+    sig = rx.sig
     t0 = time.time()
     if args.skip_acquisition:
         samples = as_interleaved(cfg, samples)
@@ -174,7 +206,7 @@ def _run(args, cfg):
           f"(PRN {','.join(str(c[0]) for c in channels)})")
     if not channels:
         print("no signals detected")
-        return 1
+        return None
     if not args.no_plots:
         from .plotting import show_channel_status
         print(show_channel_status(channels, acq, cfg))
@@ -187,8 +219,7 @@ def _run(args, cfg):
         n_epochs = max(min(int(cfg.ms_to_process / sig.code_period_ms),
                            avail), 1)
     t0 = time.time()
-    with device_trace(args.profile), \
-            timer.stage("tracking", samples=len(samples) // 2):
+    with timer.stage("tracking", samples=len(samples) // 2):
         trk = rx.track(samples, channels, n_epochs)
     checkpoint.save_tracking(out / "trkResults.npz", trk)
     print(f"tracking: {trk.i_p.shape[1]} epochs in {time.time() - t0:.2f} "
@@ -205,23 +236,7 @@ def _run(args, cfg):
               f"lat={np.mean(nav.latitude):.6f} "
               f"lon={np.mean(nav.longitude):.6f} "
               f"h={np.mean(nav.height):.1f} m")
-
-    if not args.no_plots:
-        from .plotting import (plot_acquisition, plot_navigation,
-                               plot_tracking, sky_plot)
-        plot_acquisition(acq).savefig(out / "acquisition.png", dpi=110)
-        for ch in range(len(channels)):
-            plot_tracking(trk, ch, cfg).savefig(
-                out / f"tracking_ch{ch}.png", dpi=100)
-        if nav is not None:
-            plot_navigation(nav).savefig(out / "navigation.png", dpi=110)
-            sky_plot(nav, trk.prns).savefig(out / "skyplot.png", dpi=110)
-        print(f"plots written to {out}/")
-    if args.timing:
-        print(timer.report())
-    if args.profile:
-        print(f"device trace written to {args.profile}/trace.json")
-    return 0
+    return acq, channels, trk, nav
 
 
 def _run_multi(args):

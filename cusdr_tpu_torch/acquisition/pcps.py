@@ -25,13 +25,13 @@ modes.
 from __future__ import annotations
 
 import warnings
-import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..runtime.profiling import span
 from ..signals.defs import SignalDef, sample_code
 
 
@@ -340,234 +340,238 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
     """
     from .resample import maybe_resample, recover
     device = torch.device(device)
-    samples, cfg, rs_info = maybe_resample(np.asarray(samples), cfg)
-    timings = {}
-    t0 = time.perf_counter()
+    with span("acq.codes"):
+        samples, cfg, rs_info = maybe_resample(np.asarray(samples), cfg)
 
-    prns = np.asarray(list(prn_list if prn_list is not None
-                           else cfg.acq_satellite_list))
-    spc = cfg.samples_per_code
-    # coherent span: acq_coh_time [ms] of code periods in one slab
-    n_coh = max(1, int(round(cfg.acq_coh_time
-                             / max(sig.code_period_ms, 1e-9))))
-    spc_c = n_coh * spc
-    win_len = spc_c + spc              # full-overlap lags cover [0, spc]
-    # FFT length: next power of two; the peak search stays on the
-    # reference's span (2 code periods at n_coh == 1, 1 otherwise)
-    search_len = 2 * spc if n_coh == 1 else spc
-    nfft = 1 << (win_len - 1).bit_length()
-    noncoh = cfg.acq_non_coh_time
-    fs = cfg.sampling_freq
-    ts = np.float32(1.0 / fs)
+        prns = np.asarray(list(prn_list if prn_list is not None
+                               else cfg.acq_satellite_list))
+        spc = cfg.samples_per_code
+        # coherent span: acq_coh_time [ms] of code periods in one slab
+        n_coh = max(1, int(round(cfg.acq_coh_time
+                                 / max(sig.code_period_ms, 1e-9))))
+        spc_c = n_coh * spc
+        win_len = spc_c + spc              # full-overlap lags cover [0, spc]
+        # FFT length: next power of two; the peak search stays on the
+        # reference's span (2 code periods at n_coh == 1, 1 otherwise)
+        search_len = 2 * spc if n_coh == 1 else spc
+        nfft = 1 << (win_len - 1).bit_length()
+        noncoh = cfg.acq_non_coh_time
+        fs = cfg.sampling_freq
+        ts = np.float32(1.0 / fs)
 
-    # ---- signal slabs [noncoh, nfft] -------------------------------------
-    if len(samples) < noncoh * spc_c + spc:
-        raise ValueError(f"need {noncoh * spc_c + spc} samples, got "
-                         f"{len(samples)}")
-    idx = (np.arange(noncoh)[:, None] * spc_c
-           + np.arange(win_len)[None, :])
-    slabs = np.zeros((noncoh, nfft), np.complex64)
-    slabs[:, :win_len] = np.asarray(samples)[idx]
+        # ---- signal slabs [noncoh, nfft] ------------------------------------
+        if len(samples) < noncoh * spc_c + spc:
+            raise ValueError(f"need {noncoh * spc_c + spc} samples, got "
+                             f"{len(samples)}")
+        idx = (np.arange(noncoh)[:, None] * spc_c
+               + np.arange(win_len)[None, :])
+        slabs = np.zeros((noncoh, nfft), np.complex64)
+        slabs[:, :win_len] = np.asarray(samples)[idx]
 
-    # ---- conjugate code spectra [n_prn, n_comp, nfft] --------------------
-    # an FDMA signal has one code for every channel: fn(0)
-    comps = sig.acq_code_fns()
-    n_comp = len(comps)
-    weights = np.asarray(sig.acq_weights[:n_comp], np.float32)
-    code_prns = prns[:1] if sig.fdma else prns
-    cfc = np.empty((len(code_prns), n_comp, nfft), np.complex64)
-    for i, prn in enumerate(code_prns):
-        for c, fn in enumerate(comps):
-            table = sample_code(fn(0 if sig.fdma else int(prn)),
-                                sig.elements_per_chip, sig.chip_rate_hz, fs,
-                                spc)
-            padded = np.zeros(nfft, np.float32)
-            padded[:spc_c] = np.tile(table.astype(np.float32), n_coh)
-            cfc[i, c] = np.conj(np.fft.fft(padded))
+        # ---- conjugate code spectra [n_prn, n_comp, nfft] -------------------
+        # an FDMA signal has one code for every channel: fn(0)
+        comps = sig.acq_code_fns()
+        n_comp = len(comps)
+        weights = np.asarray(sig.acq_weights[:n_comp], np.float32)
+        code_prns = prns[:1] if sig.fdma else prns
+        cfc = np.empty((len(code_prns), n_comp, nfft), np.complex64)
+        for i, prn in enumerate(code_prns):
+            for c, fn in enumerate(comps):
+                table = sample_code(fn(0 if sig.fdma else int(prn)),
+                                    sig.elements_per_chip, sig.chip_rate_hz,
+                                    fs, spc)
+                padded = np.zeros(nfft, np.float32)
+                padded[:spc_c] = np.tile(table.astype(np.float32), n_coh)
+                cfc[i, c] = np.conj(np.fft.fft(padded))
 
-    # ---- Doppler grid (descending) ---------------------------------------
-    band, step = cfg.acq_search_band, cfg.acq_search_step
-    n_bins = cfg.num_freq_bins
-    base = (cfg.if_freq + band - step * np.arange(n_bins)).astype(np.float32)
-    excl = int(round(fs / sig.chip_rate_hz)) + 1   # ±1 chip exclusion
-    slabs_d = torch.from_numpy(slabs).to(device)
-    cfc_d = torch.from_numpy(cfc).to(device)
-    weights_d = torch.from_numpy(weights).to(device)
-    kw = dict(n_comp=n_comp, search_len=search_len, excl_samples=excl,
-              period=spc)
-    coarse_freq = None
-    if sig.fdma:
-        # the 'PRN' is the frequency channel k
-        offs = (prns * sig.fdma_spacing_hz).astype(np.float32)
-        freqs = np.ascontiguousarray(base[None, :] + offs[:, None])
-        out = _pcps_fdma_kernel(slabs_d, cfc_d, weights_d,
-                                torch.from_numpy(freqs).to(device), ts,
-                                n_noncoh=noncoh, **kw)
-        peak, bin_idx, phase_idx, second, floor = (x.cpu().numpy()
-                                                   for x in out)
-    elif cfg.acq_method == "circshift":
-        # one signal FFT per sub-bin; Doppler via spectrum rotation
-        dfreq = fs / nfft
-        n_sub = max(1, int(np.ceil(dfreq / step)))
-        sub_step = dfreq / n_sub
-        n_shift = int(round(2.0 * band / dfreq)) + 1
-        f_max = cfg.if_freq + band
-        sub_offsets = (f_max - sub_step * np.arange(n_sub)
-                       ).astype(np.float32)
-        out = _pcps_circshift_kernel(
-            slabs_d, cfc_d, weights_d, torch.from_numpy(sub_offsets).to(
-                device), ts, n_shift=n_shift, **kw)
-        peak, m_idx, sub_idx, phase_idx, second, floor = (
-            x.cpu().numpy() for x in out)
-        # carrier = f_max - m·Δf - j·sub_step
-        coarse_freq = f_max - m_idx * dfreq - sub_idx * sub_step
-        bin_idx = np.zeros(len(prns), np.int64)
-    else:
-        freqs = np.broadcast_to(base, (len(prns), n_bins))
-        out = _pcps_cdma_kernel(slabs_d, cfc_d, weights_d,
-                                torch.from_numpy(base).to(device), ts,
-                                n_noncoh=noncoh, **kw)
-        peak, bin_idx, phase_idx, second, floor = (x.cpu().numpy()
-                                                   for x in out)
+        # ---- Doppler grid (descending) --------------------------------------
+        band, step = cfg.acq_search_band, cfg.acq_search_step
+        n_bins = cfg.num_freq_bins
+        base = (cfg.if_freq + band
+                - step * np.arange(n_bins)).astype(np.float32)
+        excl = int(round(fs / sig.chip_rate_hz)) + 1   # ±1 chip exclusion
+        slabs_d = torch.from_numpy(slabs).to(device)
+        cfc_d = torch.from_numpy(cfc).to(device)
+        weights_d = torch.from_numpy(weights).to(device)
+        kw = dict(n_comp=n_comp, search_len=search_len, excl_samples=excl,
+                  period=spc)
+    with span("acq.coarse") as coarse:
+        coarse_freq = None
+        if sig.fdma:
+            # the 'PRN' is the frequency channel k
+            offs = (prns * sig.fdma_spacing_hz).astype(np.float32)
+            freqs = np.ascontiguousarray(base[None, :] + offs[:, None])
+            out = _pcps_fdma_kernel(slabs_d, cfc_d, weights_d,
+                                    torch.from_numpy(freqs).to(device), ts,
+                                    n_noncoh=noncoh, **kw)
+            peak, bin_idx, phase_idx, second, floor = (x.cpu().numpy()
+                                                       for x in out)
+        elif cfg.acq_method == "circshift":
+            # one signal FFT per sub-bin; Doppler via spectrum rotation
+            dfreq = fs / nfft
+            n_sub = max(1, int(np.ceil(dfreq / step)))
+            sub_step = dfreq / n_sub
+            n_shift = int(round(2.0 * band / dfreq)) + 1
+            f_max = cfg.if_freq + band
+            sub_offsets = (f_max - sub_step * np.arange(n_sub)
+                           ).astype(np.float32)
+            out = _pcps_circshift_kernel(
+                slabs_d, cfc_d, weights_d, torch.from_numpy(sub_offsets).to(
+                    device), ts, n_shift=n_shift, **kw)
+            peak, m_idx, sub_idx, phase_idx, second, floor = (
+                x.cpu().numpy() for x in out)
+            # carrier = f_max - m·Δf - j·sub_step
+            coarse_freq = f_max - m_idx * dfreq - sub_idx * sub_step
+            bin_idx = np.zeros(len(prns), np.int64)
+        else:
+            freqs = np.broadcast_to(base, (len(prns), n_bins))
+            out = _pcps_cdma_kernel(slabs_d, cfc_d, weights_d,
+                                    torch.from_numpy(base).to(device), ts,
+                                    n_noncoh=noncoh, **kw)
+            peak, bin_idx, phase_idx, second, floor = (x.cpu().numpy()
+                                                       for x in out)
 
-    if cfg.acq_metric == "second_peak":
-        metric = peak / np.maximum(second, 1e-12)
-    else:
-        # noise-floor-referenced GLRT (see the reference's acquire)
-        metric = (np.sqrt(np.pi) / 2.0) * peak / np.maximum(floor, 1e-12)
-    detected = metric > cfg.acq_threshold
-    if coarse_freq is None:
-        coarse_freq = freqs[np.arange(len(prns)), bin_idx]
-    timings["coarse_s"] = time.perf_counter() - t0
+        if cfg.acq_metric == "second_peak":
+            metric = peak / np.maximum(second, 1e-12)
+        else:
+            # noise-floor-referenced GLRT (see the reference's acquire)
+            metric = (np.sqrt(np.pi) / 2.0) * peak / np.maximum(floor, 1e-12)
+        detected = metric > cfg.acq_threshold
+        if coarse_freq is None:
+            coarse_freq = freqs[np.arange(len(prns)), bin_idx]
 
     # ---- fine frequency stage --------------------------------------------
-    n_codes = fine_n_codes or cfg.fine_n_codes or max(
-        int(round(40.0 / max(sig.code_period_ms, 1e-9))), 4)
-    n_codes_max = len(samples) // spc - 1
-    if n_codes > n_codes_max:
-        warnings.warn(
-            f"fine stage clamped from {n_codes} to {n_codes_max} code "
-            f"periods by the record length ({len(samples)} samples)")
-        n_codes = max(n_codes_max, 1)
-    carr_freq = np.zeros(len(prns))
-    code_phase = np.zeros(len(prns), np.int64)
-    fine_step = cfg.fine_search_step
-    n_fine = int(round(cfg.acq_search_step / fine_step)) + 1
-    nav_codes = max(int(round(sig.nav_symbol_ms / sig.code_period_ms)), 1)
+    pilot = span("acq.pilot_phase")    # 0 s where it does not run
+    with span("acq.fine") as fine:
+        n_codes = fine_n_codes or cfg.fine_n_codes or max(
+            int(round(40.0 / max(sig.code_period_ms, 1e-9))), 4)
+        n_codes_max = len(samples) // spc - 1
+        if n_codes > n_codes_max:
+            warnings.warn(
+                f"fine stage clamped from {n_codes} to {n_codes_max} code "
+                f"periods by the record length ({len(samples)} samples)")
+            n_codes = max(n_codes_max, 1)
+        carr_freq = np.zeros(len(prns))
+        code_phase = np.zeros(len(prns), np.int64)
+        fine_step = cfg.fine_search_step
+        n_fine = int(round(cfg.acq_search_step / fine_step)) + 1
+        nav_codes = max(int(round(sig.nav_symbol_ms / sig.code_period_ms)), 1)
 
-    def fine_setup(prn: int):
-        """(code_fn, hypotheses H or None=envelope) for this PRN."""
-        psec = sig.pilot_secondary(int(prn)) \
-            if sig.pilot_secondary is not None else None
-        if sig.pilot_code is not None and psec is None:
-            # a pilot with no secondary: fully coherent (L2C CL, B2a);
-            # a long pilot's replica starts at the period the CL search
-            # found
-            return sig.pilot_code, np.ones((1, n_codes), np.float32)
-        if psec is not None and len(psec) <= 100:
-            return sig.pilot_code, _secondary_hypotheses(psec, n_codes)
-        if sig.data_secondary is not None \
-                and len(sig.data_secondary) <= 100:
-            return sig.data_code, _secondary_hypotheses(
-                sig.data_secondary, n_codes)
-        if nav_codes > 1:
-            return sig.data_code, _bit_edge_hypotheses(
-                n_codes, min(nav_codes, max(n_codes // 2, 1)))
-        if nav_codes == 1 and psec is None:
-            return sig.data_code, np.eye(n_codes, dtype=np.float32)
-        return sig.data_code, None     # envelope mode
+        def fine_setup(prn: int):
+            """(code_fn, hypotheses H or None=envelope) for this PRN."""
+            psec = sig.pilot_secondary(int(prn)) \
+                if sig.pilot_secondary is not None else None
+            if sig.pilot_code is not None and psec is None:
+                # a pilot with no secondary: fully coherent (L2C CL, B2a);
+                # a long pilot's replica starts at the period the CL search
+                # found
+                return sig.pilot_code, np.ones((1, n_codes), np.float32)
+            if psec is not None and len(psec) <= 100:
+                return sig.pilot_code, _secondary_hypotheses(psec, n_codes)
+            if sig.data_secondary is not None \
+                    and len(sig.data_secondary) <= 100:
+                return sig.data_code, _secondary_hypotheses(
+                    sig.data_secondary, n_codes)
+            if nav_codes > 1:
+                return sig.data_code, _bit_edge_hypotheses(
+                    n_codes, min(nav_codes, max(n_codes // 2, 1)))
+            if nav_codes == 1 and psec is None:
+                return sig.data_code, np.eye(n_codes, dtype=np.float32)
+            return sig.data_code, None     # envelope mode
 
-    pilot_phase = np.zeros(len(prns), np.int64)
-    det_idx = [i for i in range(len(prns)) if detected[i]]
-    timings["pilot_phase_s"] = 0.0
-    t0 = time.perf_counter()
-    if det_idx:
-        n_det = len(det_idx)
-        # code-aligned segment starts, stepped back whole periods when
-        # the fine window would run off the record
-        cps = []
-        for i in det_idx:
-            cp = int(phase_idx[i])
-            need = cp + n_codes * spc
-            if need > len(samples):
-                back = int(np.ceil((need - len(samples)) / spc)) * spc
-                cp = cp - back if cp >= back else cp % spc
-            cps.append(cp)
-        if min(cps) < 0 or max(cps) + n_codes * spc > len(samples):
-            raise ValueError("fine stage needs at least (fine_n_codes + 1) "
-                             "code periods")
-        seg = np.asarray(samples)
-        seg_r = torch.from_numpy(np.real(seg).astype(np.float32)).to(device)
-        seg_i = torch.from_numpy(np.imag(seg).astype(np.float32)).to(device)
-        cfreqs = coarse_freq[det_idx].astype(np.float32)
+        pilot_phase = np.zeros(len(prns), np.int64)
+        det_idx = [i for i in range(len(prns)) if detected[i]]
+        if det_idx:
+            n_det = len(det_idx)
+            # code-aligned segment starts, stepped back whole periods when
+            # the fine window would run off the record
+            cps = []
+            for i in det_idx:
+                cp = int(phase_idx[i])
+                need = cp + n_codes * spc
+                if need > len(samples):
+                    back = int(np.ceil((need - len(samples)) / spc)) * spc
+                    cp = cp - back if cp >= back else cp % spc
+                cps.append(cp)
+            if min(cps) < 0 or max(cps) + n_codes * spc > len(samples):
+                raise ValueError("fine stage needs at least (fine_n_codes "
+                                 "+ 1) code periods")
+            seg = np.asarray(samples)
+            seg_r = torch.from_numpy(
+                np.real(seg).astype(np.float32)).to(device)
+            seg_i = torch.from_numpy(
+                np.imag(seg).astype(np.float32)).to(device)
+            cfreqs = coarse_freq[det_idx].astype(np.float32)
 
-        # ---- long-pilot phase search (L2C CL) ----------------------------
-        nhyp = sig.pilot_phase_hypotheses
-        ph_seg = None
-        if nhyp > 1 and sig.pilot_code is not None:
-            t_pilot = time.perf_counter()
-            epc = sig.elements_per_chip
-            n_elem_period = sig.code_length_chips * epc
-            eidx = np.floor(np.arange(spc) * (sig.chip_rate_hz / fs)
-                            * epc).astype(np.int64)
-            reps = np.empty((n_det, nhyp, spc), np.int8)
+            # ---- long-pilot phase search (L2C CL) ---------------------------
+            nhyp = sig.pilot_phase_hypotheses
+            ph_seg = None
+            if nhyp > 1 and sig.pilot_code is not None:
+                with pilot:
+                    epc = sig.elements_per_chip
+                    n_elem_period = sig.code_length_chips * epc
+                    eidx = np.floor(np.arange(spc) * (sig.chip_rate_hz / fs)
+                                    * epc).astype(np.int64)
+                    reps = np.empty((n_det, nhyp, spc), np.int8)
+                    for j, i in enumerate(det_idx):
+                        pilot_elems = sig.pilot_code(int(prns[i]))
+                        shift = (eidx[None, :]
+                                 + (np.arange(nhyp) * n_elem_period)[:, None]
+                                 ) % len(pilot_elems)
+                        reps[j] = pilot_elems[shift]
+                    ph_seg = _pilot_phase_kernel(
+                        seg_r, seg_i, cps,
+                        torch.from_numpy(cfreqs).to(device),
+                        torch.from_numpy(reps).to(device), ts).cpu().numpy()
+                    for j, i in enumerate(det_idx):
+                        # the hypothesis indexes the segment at cps[j];
+                        # convert to the pilot period at phase_idx[i] (the
+                        # tracking start)
+                        back_periods = (int(phase_idx[i])
+                                        - int(cps[j])) // spc
+                        pilot_phase[i] = (int(ph_seg[j])
+                                          + back_periods) % nhyp
+
+            replicas = np.empty((n_det, n_codes * spc), np.float32)
+            Hs = None
+            envelope = False
             for j, i in enumerate(det_idx):
-                pilot_elems = sig.pilot_code(int(prns[i]))
-                shift = (eidx[None, :]
-                         + (np.arange(nhyp) * n_elem_period)[:, None]
-                         ) % len(pilot_elems)
-                reps[j] = pilot_elems[shift]
-            ph_seg = _pilot_phase_kernel(
-                seg_r, seg_i, cps, torch.from_numpy(cfreqs).to(device),
-                torch.from_numpy(reps).to(device), ts).cpu().numpy()
+                code_fn, H = fine_setup(int(prns[i]))
+                # a pilot-based fine stage on a long pilot starts its replica
+                # at the period found for the SEGMENT at cps[j]
+                fine_offset_chips = 0.0
+                if ph_seg is not None and code_fn is sig.pilot_code:
+                    fine_offset_chips = float(int(ph_seg[j])
+                                              * sig.code_length_chips)
+                replicas[j] = sample_code(
+                    code_fn(0 if sig.fdma else int(prns[i])),
+                    sig.elements_per_chip, sig.chip_rate_hz, fs, n_codes * spc,
+                    code_phase_chips=fine_offset_chips).astype(np.float32)
+                envelope = H is None
+                if Hs is None:
+                    Hs = np.empty((n_det,) + (np.ones((1, n_codes))
+                                              if envelope else H).shape,
+                                  np.float32)
+                Hs[j] = np.ones((1, n_codes), np.float32) if envelope else H
+            fine_freqs = (cfreqs[:, None] + cfg.acq_search_step / 2
+                          - fine_step * np.arange(n_fine)[None, :]
+                          ).astype(np.float32)
+            powers = _fine_batched(
+                seg_r, seg_i, cps, torch.from_numpy(replicas).to(device),
+                torch.from_numpy(fine_freqs).to(device),
+                torch.from_numpy(Hs).to(device), ts,
+                envelope=envelope).cpu().numpy()
             for j, i in enumerate(det_idx):
-                # the hypothesis indexes the segment at cps[j]; convert to
-                # the pilot period at phase_idx[i] (the tracking start)
-                back_periods = (int(phase_idx[i]) - int(cps[j])) // spc
-                pilot_phase[i] = (int(ph_seg[j]) + back_periods) % nhyp
-            timings["pilot_phase_s"] = time.perf_counter() - t_pilot
-
-        replicas = np.empty((n_det, n_codes * spc), np.float32)
-        Hs = None
-        envelope = False
-        for j, i in enumerate(det_idx):
-            code_fn, H = fine_setup(int(prns[i]))
-            # a pilot-based fine stage on a long pilot starts its replica
-            # at the period found for the SEGMENT at cps[j]
-            fine_offset_chips = 0.0
-            if ph_seg is not None and code_fn is sig.pilot_code:
-                fine_offset_chips = float(int(ph_seg[j])
-                                          * sig.code_length_chips)
-            replicas[j] = sample_code(
-                code_fn(0 if sig.fdma else int(prns[i])),
-                sig.elements_per_chip, sig.chip_rate_hz, fs, n_codes * spc,
-                code_phase_chips=fine_offset_chips).astype(np.float32)
-            envelope = H is None
-            if Hs is None:
-                Hs = np.empty((n_det,) + (np.ones((1, n_codes))
-                                          if envelope else H).shape,
-                              np.float32)
-            Hs[j] = np.ones((1, n_codes), np.float32) if envelope else H
-        fine_freqs = (cfreqs[:, None] + cfg.acq_search_step / 2
-                      - fine_step * np.arange(n_fine)[None, :]
-                      ).astype(np.float32)
-        powers = _fine_batched(
-            seg_r, seg_i, cps, torch.from_numpy(replicas).to(device),
-            torch.from_numpy(fine_freqs).to(device),
-            torch.from_numpy(Hs).to(device), ts,
-            envelope=envelope).cpu().numpy()
-        for j, i in enumerate(det_idx):
-            carr_freq[i] = fine_freqs[j, int(np.argmax(powers[j]))]
-            if carr_freq[i] == 0.0:
-                carr_freq[i] = 1.0
-            code_phase[i] = int(phase_idx[i])
-            code_phase[i], carr_freq[i] = recover(code_phase[i],
-                                                  carr_freq[i], rs_info)
-    timings["fine_s"] = (time.perf_counter() - t0
-                         - timings["pilot_phase_s"])
+                carr_freq[i] = fine_freqs[j, int(np.argmax(powers[j]))]
+                if carr_freq[i] == 0.0:
+                    carr_freq[i] = 1.0
+                code_phase[i] = int(phase_idx[i])
+                code_phase[i], carr_freq[i] = recover(code_phase[i],
+                                                      carr_freq[i], rs_info)
 
     return AcquisitionResult(
         prns=prns, carr_freq=carr_freq, code_phase=code_phase,
         peak_metric=np.asarray(metric), detected=np.asarray(detected),
         coarse_freq=np.asarray(coarse_freq), pilot_phase=pilot_phase,
-        timings=timings)
+        timings=dict(coarse_s=coarse.seconds, pilot_phase_s=pilot.seconds,
+                     fine_s=fine.seconds - pilot.seconds))

@@ -26,7 +26,7 @@ from .nav.bits import find_preamble
 from .orbits.kepler import sat_pos_kepler
 from .pvt.lsq import least_square_pos
 from .pvt.pseudorange import calculate_pseudoranges, transmit_times
-from .runtime.profiling import StageTimer
+from .runtime.profiling import StageTimer, span
 from .signals.defs import get_signal
 from .tracking.engine import track
 
@@ -139,13 +139,14 @@ def nav_solve(cfg, sig, track_res) -> Optional[NavSolutions]:
     tow = np.full(n_ch, np.inf)
     eph_by_prn: Dict[int, dict] = {}
     active = []
-    for ch in range(n_ch):
-        eph, start, t = decode_channel(track_res, ch, cfg, sig)
-        if eph is not None and eph.get("health", 0) == 0:
-            eph_by_prn[track_res.prns[ch]] = eph
-            sub_start[ch] = start
-            tow[ch] = t
-            active.append(ch)
+    with span("nav.decode"):
+        for ch in range(n_ch):
+            eph, start, t = decode_channel(track_res, ch, cfg, sig)
+            if eph is not None and eph.get("health", 0) == 0:
+                eph_by_prn[track_res.prns[ch]] = eph
+                sub_start[ch] = start
+                tow[ch] = t
+                active.append(ch)
     if len(active) < 4:
         return None
 
@@ -172,66 +173,67 @@ def nav_solve(cfg, sig, track_res) -> Optional[NavSolutions]:
     settle = int(getattr(track_res, "settle_epochs", 0) or 0)
     epb = int(getattr(track_res, "epochs_per_block", 0) or 0)
 
-    sol = NavSolutions()
-    local_time = np.inf
-    sat_elev = np.full(n_ch, np.inf)
-    for m in range(n_meas):
-        meas_sample = int(sample_start + step * m)
-        chans = [ch for ch in active
-                 if sat_elev[ch] >= cfg.elevation_mask_deg
-                 and meas_sample < last_sample[ch]]
-        if len(chans) < 4:
-            continue
-        if settle and epb:
-            # block boundaries differ across channels by up to a code
-            # period, so each channel is tested against its own abs_sample
-            # grid; a channel inside a block's transient drops out of this
-            # measurement epoch only
-            chans = [ch for ch in chans
-                     if (int(np.searchsorted(track_res.abs_sample[ch],
-                                             meas_sample, side="right"))
-                         - 1) % epb >= settle]
+    with span("nav.pvt"):
+        sol = NavSolutions()
+        local_time = np.inf
+        sat_elev = np.full(n_ch, np.inf)
+        for m in range(n_meas):
+            meas_sample = int(sample_start + step * m)
+            chans = [ch for ch in active
+                     if sat_elev[ch] >= cfg.elevation_mask_deg
+                     and meas_sample < last_sample[ch]]
             if len(chans) < 4:
                 continue
-        tx = transmit_times(track_res, chans, sub_start, tow,
-                            meas_sample, cfg, sig)
-        raw_p, local_time = calculate_pseudoranges(tx, chans, local_time,
-                                                   cfg)
-        sat_pos = np.zeros((3, len(chans)))
-        sat_clk = np.zeros(len(chans))
-        for k, ch in enumerate(chans):
-            sat_pos[:, k], sat_clk[k] = sat_pos_for_signal(
-                sig, tx[ch], eph_by_prn[track_res.prns[ch]])
-        obs = raw_p[chans] + sat_clk * SPEED_OF_LIGHT
-        xyzdt, el, az, dop = least_square_pos(sat_pos, obs,
-                                              cfg.use_trop_corr)
-        if not np.all(np.isfinite(xyzdt)):
-            continue
-        for ch, e in zip(chans, el):
-            sat_elev[ch] = e
-        local_time -= xyzdt[3] / SPEED_OF_LIGHT
-        sol.X.append(xyzdt[0])
-        sol.Y.append(xyzdt[1])
-        sol.Z.append(xyzdt[2])
-        sol.dt.append(0.0 if m == 0 else xyzdt[3])
-        sol.dop.append(dop)
-        sol.local_time.append(local_time)
-        sol.curr_meas_sample.append(meas_sample)
-        elv = np.full(n_ch, np.nan)
-        azv = np.full(n_ch, np.nan)
-        for ch, e, a in zip(chans, el, az):
-            elv[ch], azv[ch] = e, a
-        sol.el.append(elv)
-        sol.az.append(azv)
-        lat, lon, h = cart2geo(*xyzdt[:3], 5)
-        sol.latitude.append(lat)
-        sol.longitude.append(lon)
-        sol.height.append(h)
-        sol.utm_zone = find_utm_zone(lat, lon)
-        e_, n_, u_ = cart2utm(*xyzdt[:3], sol.utm_zone)
-        sol.E.append(e_)
-        sol.N.append(n_)
-        sol.U.append(u_)
+            if settle and epb:
+                # block boundaries differ across channels by up to a code
+                # period, so each channel is tested against its own abs_sample
+                # grid; a channel inside a block's transient drops out of this
+                # measurement epoch only
+                chans = [ch for ch in chans
+                         if (int(np.searchsorted(track_res.abs_sample[ch],
+                                                 meas_sample, side="right"))
+                             - 1) % epb >= settle]
+                if len(chans) < 4:
+                    continue
+            tx = transmit_times(track_res, chans, sub_start, tow,
+                                meas_sample, cfg, sig)
+            raw_p, local_time = calculate_pseudoranges(tx, chans, local_time,
+                                                       cfg)
+            sat_pos = np.zeros((3, len(chans)))
+            sat_clk = np.zeros(len(chans))
+            for k, ch in enumerate(chans):
+                sat_pos[:, k], sat_clk[k] = sat_pos_for_signal(
+                    sig, tx[ch], eph_by_prn[track_res.prns[ch]])
+            obs = raw_p[chans] + sat_clk * SPEED_OF_LIGHT
+            xyzdt, el, az, dop = least_square_pos(sat_pos, obs,
+                                                  cfg.use_trop_corr)
+            if not np.all(np.isfinite(xyzdt)):
+                continue
+            for ch, e in zip(chans, el):
+                sat_elev[ch] = e
+            local_time -= xyzdt[3] / SPEED_OF_LIGHT
+            sol.X.append(xyzdt[0])
+            sol.Y.append(xyzdt[1])
+            sol.Z.append(xyzdt[2])
+            sol.dt.append(0.0 if m == 0 else xyzdt[3])
+            sol.dop.append(dop)
+            sol.local_time.append(local_time)
+            sol.curr_meas_sample.append(meas_sample)
+            elv = np.full(n_ch, np.nan)
+            azv = np.full(n_ch, np.nan)
+            for ch, e, a in zip(chans, el, az):
+                elv[ch], azv[ch] = e, a
+            sol.el.append(elv)
+            sol.az.append(azv)
+            lat, lon, h = cart2geo(*xyzdt[:3], 5)
+            sol.latitude.append(lat)
+            sol.longitude.append(lon)
+            sol.height.append(h)
+            sol.utm_zone = find_utm_zone(lat, lon)
+            e_, n_, u_ = cart2utm(*xyzdt[:3], sol.utm_zone)
+            sol.E.append(e_)
+            sol.N.append(n_)
+            sol.U.append(u_)
     return sol if sol.X else None
 
 
@@ -259,16 +261,12 @@ def _acquire_record(cfg, sig, samples_iq, device):
     """Real-branch interleave + acquisition on the leading samples
     (``acquisition_samples``).  Returns (interleaved samples,
     AcquisitionResult)."""
-    samples_iq = as_interleaved(cfg, samples_iq)
-    n_acq = acquisition_samples(cfg, sig)
-    acq_sig = (samples_iq[0:2 * n_acq:2].astype(np.float32)
-               + 1j * samples_iq[1:2 * n_acq:2].astype(np.float32))
+    with span("acq.input"):
+        samples_iq = as_interleaved(cfg, samples_iq)
+        n_acq = acquisition_samples(cfg, sig)
+        acq_sig = (samples_iq[0:2 * n_acq:2].astype(np.float32)
+                   + 1j * samples_iq[1:2 * n_acq:2].astype(np.float32))
     return samples_iq, acquire(cfg, sig, acq_sig, device)
-
-
-def _stage_seconds(timer: StageTimer) -> Dict[str, float]:
-    """``ReceiverResults.timings`` from a StageTimer's stages."""
-    return {f"{name}_s": rec.seconds for name, rec in timer.stages.items()}
 
 
 def run_multi(entries, device="cuda", n_ms=None, mesh=None) -> list:
@@ -312,7 +310,7 @@ def run_multi(entries, device="cuda", n_ms=None, mesh=None) -> list:
     for cfg, sig, iq, acq, channels, timer in staged:
         if not channels:
             out.append(ReceiverResults(acq, None, None, [],
-                                       _stage_seconds(timer)))
+                                       timer.seconds()))
             continue
         trk = trks[ti]
         ti += 1
@@ -320,7 +318,7 @@ def run_multi(entries, device="cuda", n_ms=None, mesh=None) -> list:
         with timer.stage("navigation"):
             nav = nav_solve(cfg, sig, trk)
         out.append(ReceiverResults(acq, trk, nav, channels,
-                                   _stage_seconds(timer)))
+                                   timer.seconds()))
     return out
 
 
@@ -332,7 +330,9 @@ class ReceiverResults:
     channels: list
     # host-clock seconds per stage ("acquisition_s", "tracking_s",
     # "navigation_s"), each ended with the device synchronised, so the
-    # device work is included (runtime.profiling.StageTimer)
+    # device work is included (runtime.profiling.StageTimer); from a run
+    # that a torch.profiler session recorded, also each span's total
+    # ("acq_coarse_s", "trk_launch_s", "nav_pvt_s", ...)
     timings: Dict[str, float] = field(default_factory=dict)
 
 
@@ -388,10 +388,10 @@ class Receiver:
         channels = acq.best_channels(cfg.num_channels)
         if not channels:
             return ReceiverResults(acq, None, None, [],
-                                   _stage_seconds(timer))
+                                   timer.seconds())
         with timer.stage("tracking", samples=len(samples_iq) // 2):
             track_res = self.track(samples_iq, channels, n_epochs)
         with timer.stage("navigation"):
             nav = nav_solve(cfg, self.sig, track_res)
         return ReceiverResults(acq, track_res, nav, channels,
-                               _stage_seconds(timer))
+                               timer.seconds())

@@ -28,8 +28,13 @@ For the receiver's stages (the CLI's ``--timing`` and ``--profile``):
 ``StageTimer`` accumulates wall seconds and samples per named stage and
 prints them with the real-time factor; a stage that ran work on a CUDA
 device ends with ``torch.cuda.synchronize``, so its seconds include the
-device's work.  ``device_trace`` records the enclosed block with
-``torch.profiler`` and writes a Chrome trace into a directory.
+device's work.  ``span`` names a part of a stage (``acq.coarse``,
+``trk.launch``, ``nav.pvt``, ...): while a ``torch.profiler`` session
+records, each span is a ``record_function`` range in its trace, beside the
+device's kernels and copies on the same clock, and adds its seconds and
+calls to the innermost open stage (``StageRecord.spans``); otherwise it
+only reads the host clock.  ``device_trace`` records the enclosed block
+with ``torch.profiler`` and writes a Chrome trace into a directory.
 """
 
 from __future__ import annotations
@@ -44,10 +49,10 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from .. import get_config, resolve_device
 from ..signals.defs import get_signal
-from ..tracking import engine
 
 # the correlator kernels' names in a trace (csrc/*.cu)
 _CORRELATOR_KERNELS = ("correlate_bank_kernel", "correlate_windows")
@@ -61,6 +66,59 @@ class StageRecord:
     seconds: float = 0.0
     calls: int = 0
     samples: int = 0
+    # the totals of the spans closed inside the stage while a profiler
+    # recorded, by span name (nested spans each under their own name)
+    spans: Dict[str, "StageRecord"] = dataclasses.field(default_factory=dict)
+
+
+# the records of the StageTimer stages open now, innermost last: where a
+# span closed while a profiler records adds its seconds and calls
+_OPEN_STAGES: list = []
+
+
+class span:
+    """A named part of a stage, timed on the host clock.
+
+    >>> with span("trk.results") as s:
+    ...     results = build()
+    >>> s.seconds
+
+    While a ``torch.profiler`` session records, the span is a
+    ``record_function`` range of its name in that trace (on the clock of
+    the device's kernels and copies) and adds its seconds and one call to
+    the innermost open ``StageTimer`` stage's ``spans``.  Otherwise it
+    costs a flag test and two host-clock reads, enters no
+    ``record_function`` and adds to nothing; ``seconds`` holds its own
+    duration either way.  No span is named "record": a trace's "record"
+    ranges are the benchmark's, one per record."""
+
+    __slots__ = ("name", "seconds", "_t0", "_range", "_rec")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.seconds = 0.0
+        self._range = self._rec = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+            if _OPEN_STAGES:        # listed in the order spans first open
+                self._rec = _OPEN_STAGES[-1].spans.setdefault(
+                    self.name, StageRecord())
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+            if self._rec is not None:
+                self._rec.seconds += self.seconds
+                self._rec.calls += 1
+                self._rec = None
+        return False
 
 
 @dataclasses.dataclass
@@ -74,7 +132,9 @@ class StageTimer:
 
     With a CUDA ``device`` every stage ends with
     ``torch.cuda.synchronize(device)``, so that its seconds hold the work
-    it queued on the card and not only the time to queue it."""
+    it queued on the card and not only the time to queue it.  Each stage
+    is also the ``span`` of its name, and collects the spans closed inside
+    it while a profiler records."""
     sampling_freq: float = 0.0
     device: Optional[object] = None
     stages: Dict[str, StageRecord] = dataclasses.field(default_factory=dict)
@@ -82,16 +142,19 @@ class StageTimer:
     @contextlib.contextmanager
     def stage(self, name: str, samples: int = 0):
         rec = self.stages.setdefault(name, StageRecord())
-        t0 = time.perf_counter()
-        try:
-            yield rec
-        finally:
-            if self.device is not None \
-                    and torch.device(self.device).type == "cuda":
-                torch.cuda.synchronize(self.device)
-            rec.seconds += time.perf_counter() - t0
-            rec.calls += 1
-            rec.samples += samples
+        with span(name):
+            _OPEN_STAGES.append(rec)
+            t0 = time.perf_counter()
+            try:
+                yield rec
+            finally:
+                if self.device is not None \
+                        and torch.device(self.device).type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                rec.seconds += time.perf_counter() - t0
+                rec.calls += 1
+                rec.samples += samples
+                _OPEN_STAGES.pop()
 
     def realtime_factor(self, name: str) -> float:
         rec = self.stages.get(name)
@@ -99,7 +162,19 @@ class StageTimer:
             return float("nan")
         return (rec.samples / rec.seconds) / self.sampling_freq
 
+    def seconds(self) -> Dict[str, float]:
+        """Each stage's seconds as ``<stage>_s`` and, where a profiler
+        recorded, each span's total as ``<span, "." as "_">_s``."""
+        out = {f"{name}_s": rec.seconds for name, rec in self.stages.items()}
+        for rec in self.stages.values():
+            for name, sp in rec.spans.items():
+                key = name.replace(".", "_") + "_s"
+                out[key] = out.get(key, 0.0) + sp.seconds
+        return out
+
     def report(self) -> str:
+        """The stages' seconds, calls, samples and real-time factors, each
+        stage's spans indented under it."""
         lines = ["Stage              time [s]   calls     Msamples  xRT"]
         total = 0.0
         for name, rec in self.stages.items():
@@ -109,6 +184,9 @@ class StageTimer:
                 f"{name:<18} {rec.seconds:9.3f} {rec.calls:7d} "
                 f"{rec.samples / 1e6:11.2f}  "
                 f"{'' if xrt != xrt else f'{xrt:.2f}'}")
+            for sp_name, sp in rec.spans.items():
+                lines.append(f"  {sp_name:<16} {sp.seconds:9.3f} "
+                             f"{sp.calls:7d}")
         lines.append(f"{'TOTAL':<18} {total:9.3f}")
         return "\n".join(lines)
 
@@ -151,6 +229,7 @@ def make_bank(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
     signal's on their frequency channels' carriers), as ``n_blocks`` time
     blocks of ``n_epochs`` (B·C rows sharing C table rows).  Returns (iq,
     tables, ptables, state, params)."""
+    from ..tracking import engine
     sig = get_signal(cfg.signal)
     params = engine.make_track_params(cfg, sig)
     n_ch = cfg.num_channels
@@ -187,6 +266,7 @@ def profile_epochs(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
     the trace over epochs), ``device_ms_per_epoch``,
     ``correlator_ms_per_epoch`` and ``idle_share`` (1 − device time over
     the fastest unprofiled run); None for these on the CPU."""
+    from ..tracking import engine
     device = resolve_device(device)
     iq, tables, ptables, state, params = make_bank(cfg, device, n_blocks,
                                                    n_epochs, seed)
@@ -285,17 +365,15 @@ def profile_superblock(cfg, device, n_epochs: int, n_blocks: int = 1,
     ``device_ms`` (the card's time per ``track_superblock`` call: CUDA
     events over five calls made back to back, which keep the card busy
     throughout), ``idle_share`` (1 − ``device_ms`` over the least
-    ``track_ms``), ``busy_share`` (in the longer ``track`` run, the card's
-    time between CUDA events around each ``track_superblock`` call over
-    the run's span between events before and after it, the host's
-    set-up and ``TrackResults`` included: ``busy_track``)
-    and, from ``torch.profiler`` where its trace holds the call,
+    ``track_ms``) and, from ``torch.profiler`` where its trace holds the
+    call,
     ``launches`` (device kernels and copies of ``track_superblock``),
     ``kernel_ms`` (the superblock kernel alone) and ``busy_share_traced``
     (in a traced run of the longer ``track``, the superblock kernel's time
     over the trace's span from its first device event to its last: the
     loop alone, without the host's set-up before it and ``TrackResults``
     after it); None for these on the CPU."""
+    from ..tracking import engine
     device = resolve_device(device)
     iq, tables, ptables, state, params = make_bank(cfg, device, n_blocks,
                                                    n_epochs, seed)
@@ -348,8 +426,7 @@ def profile_superblock(cfg, device, n_epochs: int, n_blocks: int = 1,
                buffer_bytes=2 * buf_len,
                **{name: [] for name in steps}, pipelined_ms=None,
                superblocks=None, launches=None, device_ms=None,
-               kernel_ms=None, idle_share=None, busy_share=None,
-               busy_share_traced=None)
+               kernel_ms=None, idle_share=None, busy_share_traced=None)
     for _ in range(repeats):
         for name, fn in steps.items():
             res[name].append(_wall_ms(fn))
@@ -380,8 +457,6 @@ def profile_superblock(cfg, device, n_epochs: int, n_blocks: int = 1,
     if traced_ms is not None:
         res.update(launches=launches, kernel_ms=kernel_ms)
     if pipelined:
-        _, busy = busy_track(lambda: track_run(2 * n_superblocks))
-        res["busy_share"] = busy["busy_ms"] / busy["span_ms"]
         _, traced_ms, kernel_ms, span_ms = _device_profile(
             lambda: track_run(2 * n_superblocks), kernel)
         if traced_ms is not None and span_ms:
@@ -389,57 +464,12 @@ def profile_superblock(cfg, device, n_epochs: int, n_blocks: int = 1,
     return res
 
 
-def busy_track(loop):
-    """Run ``loop()`` (which calls ``engine.track``) on a card with CUDA
-    events on the current stream around each ``engine.track_superblock``
-    call and before and after the run, and the host clock around the
-    ``engine.TrackResults`` it builds at the end (the C/N0 of every
-    channel's every 40 ms window).  For the run the two module attributes
-    are swapped for timed wrappers, and restored after it.  Returns (its
-    result, dict of ``seconds`` (the run's host seconds), ``results_s``
-    (of which ``TrackResults``), ``superblocks``, ``busy_ms`` (the card's
-    milliseconds between the events around each call) and ``span_ms``
-    (the card's milliseconds from the run's first event to its last))."""
-    real, real_results = engine.track_superblock, engine.TrackResults
-    spans, results_s = [], []
-
-    def timed(*args, **kw):
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        out = real(*args, **kw)
-        b.record()
-        spans.append((a, b))
-        return out
-
-    def timed_results(*args, **kw):
-        t0 = time.perf_counter()
-        out = real_results(*args, **kw)
-        results_s.append(time.perf_counter() - t0)
-        return out
-
-    first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    engine.track_superblock, engine.TrackResults = timed, timed_results
-    try:
-        t0 = time.perf_counter()
-        first.record()
-        res = loop()
-        last.record()
-        seconds = time.perf_counter() - t0
-    finally:
-        engine.track_superblock, engine.TrackResults = real, real_results
-    last.synchronize()
-    return res, dict(seconds=seconds, results_s=sum(results_s),
-                     superblocks=len(spans),
-                     busy_ms=sum(a.elapsed_time(b) for a, b in spans),
-                     span_ms=first.elapsed_time(last))
-
-
 def _pipelined_track(cfg, device, record, n_epochs, n_superblocks):
     """A function of n that runs ``engine.track`` with the lock gate off
     over n superblocks of ``n_epochs`` on ``make_bank``'s channels, the
     record ``record`` repeated to ``2·n_superblocks`` superblocks' length
     (and a few epochs' margin)."""
+    from ..tracking import engine
     sig = get_signal(cfg.signal)
     cfg = cfg.replace(lock_detect=False,
                       superblock_ms=n_epochs * sig.code_period_ms)
@@ -475,9 +505,7 @@ def format_superblock_profile(p: dict) -> str:
             f"{f(p['kernel_ms'], '.3f')} ms), drain {span('drain_ms')} ms"
             + ("" if p["pipelined_ms"] is None else
                f"; track pipelined {p['pipelined_ms']:.3f} ms per "
-               f"superblock over {p['superblocks']} (card busy "
-               f"{f(p['busy_share'], '.1%')} of the run, set-up and "
-               f"TrackResults included; superblock kernel "
+               f"superblock over {p['superblocks']} (superblock kernel "
                f"{f(p['busy_share_traced'], '.1%')} of the trace's device "
                f"span)"))
 

@@ -47,6 +47,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..runtime.profiling import span
 from ..signals.defs import SignalDef
 from ..ops.correlator import (clamp_offsets, correlate_bank,
                               correlate_windows, pack_sums, stage_windows,
@@ -808,8 +809,9 @@ class _StagingRing:
         first ``2·buf_len`` elements for the launch."""
         s = self.k = (self.k + 1) % 2
         n = 2 * buf_len
-        if self.on_card:
-            self.copied[s].synchronize()
+        with span("trk.wait"):
+            if self.on_card:
+                self.copied[s].synchronize()
         stage_superblock(samples_iq, sb_start, buf_len,
                          out=self.host_np[s][:n])
         if not self.on_card:
@@ -885,24 +887,31 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
     period counter (``init_channel_state``).  For an FDMA signal the prn is
     the frequency channel k and the carrier includes its offset.
     """
-    device = torch.device(device)
-    params = make_track_params(cfg, sig)
-    samples_iq = np.ascontiguousarray(np.asarray(samples_iq))
-    spc = cfg.samples_per_code
-    total_samples = len(samples_iq) // 2
-    max_phase = max(ch[2] for ch in channels)
-    if n_epochs is None:
-        n_epochs = int((total_samples - max_phase - 2 * spc) // spc)
-    sb_epochs = min(n_epochs, superblock_epochs(cfg, sig))
+    with span("trk.setup"):
+        device = torch.device(device)
+        params = make_track_params(cfg, sig)
+        samples_iq = np.ascontiguousarray(np.asarray(samples_iq))
+        spc = cfg.samples_per_code
+        total_samples = len(samples_iq) // 2
+        max_phase = max(ch[2] for ch in channels)
+        if n_epochs is None:
+            n_epochs = int((total_samples - max_phase - 2 * spc) // spc)
+        sb_epochs = min(n_epochs, superblock_epochs(cfg, sig))
 
-    # Doppler-aided code rates (tables + state init)
-    dopplers0 = code_dopplers(cfg, sig, channels)
-    ctabs, ptabs = build_tables(cfg, sig, params, channels, dopplers0)
-    tables = torch.from_numpy(ctabs).to(device)
-    ptables = None if ptabs is None else torch.from_numpy(ptabs).to(device)
-    state = init_channel_state(channels, sig.chip_rate_hz, device,
-                               dopplers=dopplers0,
-                               carrier_freq_hz=sig.carrier_freq_hz)
+        # Doppler-aided code rates (tables + state init)
+        dopplers0 = code_dopplers(cfg, sig, channels)
+        ctabs, ptabs = build_tables(cfg, sig, params, channels, dopplers0)
+        tables = torch.from_numpy(ctabs).to(device)
+        ptables = None if ptabs is None \
+            else torch.from_numpy(ptabs).to(device)
+        state = init_channel_state(channels, sig.chip_rate_hz, device,
+                                   dopplers=dopplers0,
+                                   carrier_freq_hz=sig.carrier_freq_hz)
+        windows = superblock_windows(n_epochs, sb_epochs, spc,
+                                     min(ch[2] for ch in channels),
+                                     max_phase, params.blk)
+        ring = _StagingRing(2 * max((w[2] for w in windows), default=0),
+                            samples_iq.dtype, device)
     vsm = cfg.cno.vsm_interval_ms
     low_lock = np.zeros(len(channels), np.int32)
     base_pwr = [None]
@@ -920,8 +929,9 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
         for 2 consecutive superblocks is dropped.  The fetch lags the
         dispatch by one superblock, so a drop takes effect one superblock
         later than in a synchronous loop (as in the reference)."""
-        if done is not None:
-            done.synchronize()
+        with span("trk.wait"):
+            if done is not None:
+                done.synchronize()
         out_np = TrackOutputs(*(x.numpy() for x in outs))
         # the window bounds below are analytic; a window outside the buffer
         # was clamped on the device and correlated the wrong samples
@@ -959,29 +969,30 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
     # it, and outputs are read back one superblock behind the dispatch.
     # Superblock k+1 is staged into the ring's other slot and copied to the
     # card on a side stream while the card tracks superblock k.
-    windows = superblock_windows(n_epochs, sb_epochs, spc,
-                                 min(ch[2] for ch in channels), max_phase,
-                                 params.blk)
-    ring = _StagingRing(2 * max((w[2] for w in windows), default=0),
-                        samples_iq.dtype, device)
     pending = None
     drop_mask = None
     for cur, sb_start, buf_len in windows:
-        iq = ring.put(samples_iq, sb_start, buf_len)
-        if drop_mask is not None:
-            state = state._replace(
-                active=state.active & _host_to(device, ~drop_mask))
-        state, outs = track_superblock(iq, sb_start, tables, ptables, state,
-                                       params, cur, total_samples)
-        ring.launched()
+        with span("trk.stage"):
+            iq = ring.put(samples_iq, sb_start, buf_len)
+        with span("trk.launch"):
+            if drop_mask is not None:
+                state = state._replace(
+                    active=state.active & _host_to(device, ~drop_mask))
+            state, outs = track_superblock(iq, sb_start, tables, ptables,
+                                           state, params, cur, total_samples)
+            ring.launched()
+            launched = (*_to_host(outs, device), cur, sb_start, buf_len)
         if pending is not None:
-            drop_mask = drain(*pending)     # lags one superblock
-        pending = (*_to_host(outs, device), cur, sb_start, buf_len)
+            with span("trk.drain"):
+                drop_mask = drain(*pending)     # lags one superblock
+        pending = launched
     if pending is not None:
-        drain(*pending)
+        with span("trk.drain"):
+            drain(*pending)
 
-    merged = {}
-    for fieldname in TrackOutputs._fields:
-        merged[fieldname] = np.concatenate(
-            [getattr(c, fieldname) for c in chunks], axis=0).T  # [C, E]
-    return TrackResults([ch[0] for ch in channels], merged, cfg)
+    with span("trk.results"):
+        merged = {}
+        for fieldname in TrackOutputs._fields:
+            merged[fieldname] = np.concatenate(
+                [getattr(c, fieldname) for c in chunks], axis=0).T  # [C, E]
+        return TrackResults([ch[0] for ch in channels], merged, cfg)

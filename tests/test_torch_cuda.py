@@ -29,8 +29,9 @@ bank on three streams, each equal to a standalone ``track``; and
 against chip_smoke.py's synchronous yardstick, element for element: int8
 and int16, the fetch and the staged superblock kernel, the gather path and
 a short last superblock, and with the lock gate on, a channel dropped one
-superblock late by a drop mask sent to the card; and the ring's buffers
-page-locked.
+superblock late by a drop mask sent to the card; the ring's buffers
+page-locked; and the spans of a traced ``Receiver.run`` on the clock of the
+card's kernels, their device-side shadows user annotations.
 
 Every case needs a CUDA card and skips without one.  The file imports no
 jax, so it also runs where jax is absent:
@@ -1407,3 +1408,53 @@ def test_staging_ring_is_page_locked(cuda):
         assert dev.is_cuda and dev.shape == (2 * buf_len,)
         assert np.array_equal(dev.cpu().numpy(), engine.stage_superblock(
             record, sb_start, buf_len))
+
+
+def test_spans_share_the_card_clock_and_shadow_as_annotations(cuda):
+    """A traced ``Receiver.run`` on the card (a 1.2 s gps_l1ca record at
+    2.048 Msps, superblocks of 200 ms): the spans and the card's kernels
+    lie on one clock, every superblock-kernel launch inside the
+    ``tracking`` stage's range; the device-side shadows of the spans
+    report ``is_user_annotation()``, so a reader of device work can leave
+    them out; ``timings`` gains the span totals, and the results equal an
+    untraced run's element for element."""
+    from torch.profiler import ProfilerActivity, profile
+    from cusdr_tpu_torch.receiver import Receiver
+    cfg, sig, iq, _ = _sv_scene(2.048e6, 4, 1200, cn0_dbhz=48.0)
+    cfg = cfg.replace(superblock_ms=200,
+                      acq_satellite_list=cfg.acq_satellite_list[:6])
+    rx = Receiver(cfg, cuda)
+    off = rx.run(iq)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        on = rx.run(iq)
+        torch.cuda.synchronize()
+    assert set(off.timings) == {"acquisition_s", "tracking_s",
+                                "navigation_s"}
+    assert {"acq_coarse_s", "trk_launch_s", "trk_wait_s",
+            "nav_decode_s"} <= set(on.timings)
+    for f in engine.TrackOutputs._fields + ("active_until",):
+        assert np.array_equal(getattr(on.track, f), getattr(off.track, f)), f
+    names = {"acquisition", "tracking", "navigation"} | {
+        k[:-2].replace("_", ".", 1) for k in on.timings
+        if k[:4] in ("acq_", "trk_", "nav_")}
+    host, kernels, shadows = {}, [], []
+    for ev in prof.profiler.kineto_results.events():
+        dev = str(ev.device_type()).endswith("CUDA")
+        if ev.name() in names:
+            if dev:
+                shadows.append(ev)
+            else:
+                host.setdefault(ev.name(), []).append(
+                    (ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+        elif dev and "track_superblock_kernel" in ev.name():
+            kernels.append(ev.start_ns())
+    n_sb = -(-on.track.i_p.shape[1] // 200)
+    assert len(kernels) == n_sb == len(host["trk.launch"])
+    (t0, t1), = host["tracking"]
+    assert all(t0 <= k <= t1 for k in kernels)
+    (a0, a1), = host["acquisition"]
+    assert a1 <= t0
+    assert all(ev.is_user_annotation() for ev in shadows), \
+        sorted({ev.name() for ev in shadows if not ev.is_user_annotation()})

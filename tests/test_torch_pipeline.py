@@ -239,7 +239,7 @@ def test_drop_takes_effect_one_superblock_late():
 def test_superblock_profile_reports_the_pipelined_loop():
     """``profile_superblock`` stages into a reused buffer beside a fresh
     one and times ``track`` over 2N and N superblocks for its steady-state
-    host milliseconds per superblock; the card's busy shares exist only on
+    host milliseconds per superblock; the card's busy share exists only on
     a card, and a bank of several blocks (which ``track`` does not run),
     or N = 0, has no pipelined figure."""
     from cusdr_tpu_torch.runtime import profiling
@@ -249,7 +249,7 @@ def test_superblock_profile_reports_the_pipelined_loop():
     for name in ("stage_ms", "stage_ring_ms", "h2d_ms", "h2d_ring_ms"):
         assert len(p[name]) == 2 and min(p[name]) >= 0.0
     assert p["superblocks"] == 6 and p["pipelined_ms"] is not None
-    assert p["busy_share"] is None and p["busy_share_traced"] is None
+    assert p["busy_share_traced"] is None
     assert "track pipelined" in profiling.format_superblock_profile(p)
     p = profiling.profile_superblock(cfg, "cpu", n_epochs=3, n_blocks=2,
                                      repeats=1)

@@ -1,0 +1,234 @@
+"""The port's spans (``runtime.profiling.span``) on the CPU.
+
+A 1.2 s gps_l1ca record at 2.048 Msps, three SVs, in superblocks of 200
+ms, run by ``Receiver.run`` once with no profiler and once under
+``torch.profiler`` (CPU activity):
+
+- with no profiler the run enters no ``record_function`` (it is patched to
+  raise) and ``timings`` holds exactly its three stage keys;
+- under the profiler every span the record reaches is a range in the
+  kineto events, each inside its stage's range (``trk.wait`` inside
+  ``trk.stage`` or ``trk.drain``); the record reaches no long-pilot search
+  (gps_l1ca has none) and no fix (no frame in 1.2 s), so
+  ``acq.pilot_phase`` and ``nav.pvt`` are not among them;
+- ``trk.launch``'s calls equal the superblocks of the window plan, every
+  ``*_s`` total is >= 0, and each stage's direct sub-spans sum to no more
+  than the stage's seconds (``trk.wait``, nested, counted once);
+- the results (acquisition, every ``TrackResults`` field, fixes) are equal
+  element for element with tracing on and off.
+
+Also ``StageTimer``'s span collection and report, a span's own seconds with
+no profiler, and the CLI's ``--profile``: one trace of the whole run with
+every stage's spans, and their totals printed under their stages.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from cusdr_tpu_torch import get_config
+from cusdr_tpu_torch.io.synth import SynthSV, quantize_iq_int8, synthesize_if
+from cusdr_tpu_torch.receiver import Receiver
+from cusdr_tpu_torch.runtime import profiling
+from cusdr_tpu_torch.runtime.profiling import StageTimer, span
+from cusdr_tpu_torch.signals.defs import get_signal
+from cusdr_tpu_torch.tracking import engine
+
+from test_torch_threads import THREADS, few_torch_threads  # noqa: F401
+
+OVER = dict(sampling_freq=2.048e6, if_freq=7000.0, superblock_ms=200,
+            acq_satellite_list=(3, 7, 12, 20))
+SVS = [SynthSV(prn=3, code_phase=200.0, doppler_hz=1200.0, cn0_dbhz=48.0),
+       SynthSV(prn=7, code_phase=900.5, doppler_hz=-800.0, cn0_dbhz=48.0),
+       SynthSV(prn=12, code_phase=1500.0, doppler_hz=300.0, cn0_dbhz=48.0)]
+RECORD_MS = 1200
+
+STAGES = ("acquisition", "tracking", "navigation")
+# each stage's direct sub-spans, in the order the stage opens them
+SUB_SPANS = {"acquisition": ("acq.input", "acq.codes", "acq.coarse",
+                             "acq.fine"),
+             "tracking": ("trk.setup", "trk.stage", "trk.launch",
+                          "trk.drain", "trk.results"),
+             "navigation": ("nav.decode", "nav.pvt")}
+REACHED = {"acq.input", "acq.codes", "acq.coarse", "acq.fine", "trk.setup",
+           "trk.stage", "trk.launch", "trk.drain", "trk.wait",
+           "trk.results", "nav.decode"}
+ALL_SPANS = REACHED | {"acq.pilot_phase", "nav.pvt"}
+
+
+def _key(name):
+    return name.replace(".", "_") + "_s"
+
+
+@pytest.fixture(scope="module")
+def record():
+    cfg = get_config("gps_l1ca", **OVER)
+    return cfg, quantize_iq_int8(synthesize_if(
+        cfg, get_signal("gps_l1ca"), SVS, num_ms=RECORD_MS, seed=5))
+
+
+@pytest.fixture(scope="module")
+def runs(record):
+    """(untraced result, traced result, the trace's span and stage ranges
+    {name: [(start_us, end_us)]})."""
+    cfg, iq = record
+    rx = Receiver(cfg, "cpu")
+    real = torch.profiler.record_function
+
+    def refuse(*a, **k):
+        raise AssertionError("record_function entered with no profiler")
+
+    torch.profiler.record_function = refuse
+    try:
+        off = rx.run(iq)
+    finally:
+        torch.profiler.record_function = real
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = rx.run(iq)
+    ranges = {}
+    for ev in prof.events():
+        if ev.name in ALL_SPANS or ev.name in STAGES:
+            ranges.setdefault(ev.name, []).append(
+                (ev.time_range.start, ev.time_range.end))
+    return off, on, ranges
+
+
+def test_no_profiler_no_record_function_and_three_keys(runs):
+    off, _, _ = runs
+    assert set(off.timings) == {"acquisition_s", "tracking_s",
+                                "navigation_s"}
+    assert off.track is not None and len(off.channels) == 3
+
+
+def test_every_reached_span_lies_inside_its_stage(runs):
+    _, _, ranges = runs
+    assert set(ranges) == set(STAGES) | REACHED
+    for stage in STAGES:
+        assert len(ranges[stage]) == 1
+    for stage, names in SUB_SPANS.items():
+        (a, b), = ranges[stage]
+        for name in names:
+            for s, e in ranges.get(name, []):
+                assert a <= s <= e <= b, (name, stage)
+    outer = ranges["trk.stage"] + ranges["trk.drain"]
+    for s, e in ranges["trk.wait"]:
+        assert any(a <= s <= e <= b for a, b in outer)
+
+
+def test_launches_equal_the_window_plan(runs, record):
+    _, on, ranges = runs
+    cfg, _ = record
+    sig = get_signal("gps_l1ca")
+    n_epochs = on.track.i_p.shape[1]
+    plan = engine.superblock_plan(
+        n_epochs, min(n_epochs, engine.superblock_epochs(cfg, sig)))
+    assert len(plan) >= 5
+    assert len(ranges["trk.launch"]) == len(plan)
+    assert len(ranges["trk.stage"]) == len(ranges["trk.drain"]) == len(plan)
+    assert len(ranges["trk.wait"]) == 2 * len(plan)
+
+
+def test_totals_reach_timings_and_sum_within_their_stage(runs):
+    _, on, _ = runs
+    t = on.timings
+    want = {f"{s}_s" for s in STAGES} | {_key(n) for n in REACHED}
+    assert set(t) == want
+    assert all(v >= 0.0 for v in t.values())
+    for stage, names in SUB_SPANS.items():
+        assert sum(t.get(_key(n), 0.0) for n in names) <= t[f"{stage}_s"]
+    assert t["trk_wait_s"] <= t["trk_stage_s"] + t["trk_drain_s"]
+
+
+def test_results_equal_with_tracing_on_and_off(runs):
+    off, on, _ = runs
+    for name in ("prns", "carr_freq", "code_phase", "peak_metric",
+                 "detected", "coarse_freq", "pilot_phase"):
+        assert np.array_equal(getattr(off.acq, name), getattr(on.acq, name))
+    assert set(off.acq.timings) == set(on.acq.timings) == {
+        "coarse_s", "pilot_phase_s", "fine_s"}
+    assert on.acq.timings["pilot_phase_s"] == 0.0
+    assert off.channels == on.channels
+    fields = set(vars(off.track))
+    assert fields == set(vars(on.track))
+    assert {"i_p", "carr_freq", "active_until", "cno", "status"} <= fields
+    for name in fields:
+        a, b = getattr(off.track, name), getattr(on.track, name)
+        if isinstance(a, dict):
+            assert a.keys() == b.keys()
+            for k in a:
+                assert np.array_equal(a[k], b[k]), (name, k)
+        else:
+            assert np.array_equal(np.asarray(a), np.asarray(b)), name
+    assert off.nav is None and on.nav is None
+
+
+def test_span_with_no_profiler_times_itself_and_adds_to_nothing():
+    timer = StageTimer()
+    with timer.stage("acquisition"):
+        with span("acq.coarse") as s:
+            sum(range(1000))
+    assert s.seconds > 0.0
+    assert timer.stages["acquisition"].spans == {}
+    assert timer.seconds() == {"acquisition_s":
+                               timer.stages["acquisition"].seconds}
+    assert not profiling._OPEN_STAGES
+
+
+def test_stage_timer_collects_spans_under_a_profiler():
+    from torch.profiler import ProfilerActivity, profile
+    timer = StageTimer(sampling_freq=1e6)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with timer.stage("tracking", samples=1000):
+                with span("trk.launch"):
+                    with span("trk.wait"):
+                        pass
+    with span("trk.launch"):                 # outside every stage
+        pass
+    rec = timer.stages["tracking"]
+    assert rec.calls == 3
+    assert {n: r.calls for n, r in rec.spans.items()} == {
+        "trk.launch": 3, "trk.wait": 3}
+    assert rec.spans["trk.wait"].seconds <= rec.spans["trk.launch"].seconds
+    assert rec.spans["trk.launch"].seconds <= rec.seconds
+    names = [ev.name for ev in prof.events()]
+    assert names.count("tracking") == names.count("trk.wait") == 3
+    assert set(timer.seconds()) == {"tracking_s", "trk_launch_s",
+                                    "trk_wait_s"}
+    lines = timer.report().splitlines()
+    assert lines[1].startswith("tracking")
+    assert lines[2].split() == ["trk.launch", lines[2].split()[1], "3"]
+    assert lines[2].startswith("  trk.launch") and lines[3].startswith(
+        "  trk.wait")
+    assert not profiling._OPEN_STAGES
+
+
+def test_cli_profile_traces_the_whole_run(record, tmp_path):
+    cfg, iq = record
+    f = tmp_path / "rec.bin"
+    iq.tofile(f)
+    env = dict(os.environ, OMP_NUM_THREADS=str(THREADS))
+    out = subprocess.run(
+        [sys.executable, "-m", "cusdr_tpu_torch", "run", "--signal",
+         "gps_l1ca", "--file", str(f), "--fs", "2048000", "--if-freq",
+         "7000", "--prns", "3,7,12,20", "--out", str(tmp_path / "out"),
+         "--no-plots", "--device", "cpu", "--profile",
+         str(tmp_path / "trace")],
+        capture_output=True, text=True, timeout=600, env=env)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    names = {ev.get("name") for ev in trace["traceEvents"]}
+    assert set(STAGES) | REACHED <= names
+    lines = out.stdout.splitlines()
+    i = lines.index(next(x for x in lines if x.startswith("Stage ")))
+    table = [x.split()[0] for x in lines[i + 1:]]
+    assert table[:6] == ["acquisition", "acq.input", "acq.codes",
+                         "acq.coarse", "acq.fine", "tracking"]
+    assert "trk.launch" in table and "nav.decode" in table
+    assert table.index("navigation") < table.index("nav.decode")
