@@ -24,8 +24,7 @@ from .io.ingest import read_if_file
 from .nav import lnav
 from .nav.bits import find_preamble
 from .orbits.kepler import sat_pos_kepler
-from .pvt.lsq import least_square_pos
-from .pvt.pseudorange import calculate_pseudoranges, transmit_times
+from .pvt.batch import least_square_pos_batch, transmit_times_batch
 from .runtime.profiling import StageTimer, span
 from .signals.defs import get_signal
 from .tracking.engine import track
@@ -131,6 +130,60 @@ def sat_pos_for_signal(sig, transmit_time: float, eph: dict):
     raise ValueError(f"no orbit model for codec {codec}")
 
 
+class _FixEpochs:
+    """A record's measurement epochs solved in batches.
+
+    ``solve(first, dropped)`` is one pass (the span ``nav.pvt_pass``): it
+    solves every epoch from ``first`` on with its usable channels less
+    ``dropped``, the epochs of one channel set in one
+    ``least_square_pos_batch`` call, each epoch's pseudoranges formed at a
+    provisional local time, max(transmit time) + start offset.
+    ``fixes[m]`` is then (channels, provisional local time, pos[4], el,
+    az, dop), or None where fewer than 4 channels remain.  Satellite
+    positions and clocks are computed once per (epoch, channel), on first
+    use."""
+
+    def __init__(self, cfg, sig, track_res, eph_by_prn, tx, usable):
+        self.cfg, self.sig, self.tx, self.usable = cfg, sig, tx, usable
+        n_meas, n_ch = usable.shape
+        self.eph = [eph_by_prn.get(prn) for prn in track_res.prns]
+        self.sat_pos = np.zeros((n_meas, 3, n_ch))
+        self.sat_clk = np.zeros((n_meas, n_ch))
+        self.have = np.zeros((n_meas, n_ch), bool)
+        self.fixes: List[Optional[tuple]] = [None] * n_meas
+
+    def solve(self, first: int, dropped: np.ndarray):
+        with span("nav.pvt_pass"):
+            groups: Dict[tuple, list] = {}
+            for m in range(first, len(self.fixes)):
+                self.fixes[m] = None
+                chans = np.flatnonzero(self.usable[m] & ~dropped)
+                if len(chans) >= 4:
+                    groups.setdefault(tuple(chans), []).append(m)
+            for chans, ms in groups.items():
+                self._solve_group(ms, list(chans))
+
+    def _solve_group(self, ms, chans):
+        for m in ms:
+            for ch in chans:
+                if not self.have[m, ch]:
+                    self.sat_pos[m, :, ch], self.sat_clk[m, ch] = \
+                        sat_pos_for_signal(self.sig, self.tx[m, ch],
+                                           self.eph[ch])
+                    self.have[m, ch] = True
+        tx = self.tx[np.ix_(ms, chans)]
+        prov_time = tx.max(axis=1) + self.cfg.start_offset_ms / 1000.0
+        obs = ((prov_time[:, None] - tx) * SPEED_OF_LIGHT
+               + self.sat_clk[np.ix_(ms, chans)] * SPEED_OF_LIGHT)
+        sat_pos = self.sat_pos[ms][:, :, chans]
+        pos, el, az, dop = least_square_pos_batch(sat_pos, obs,
+                                                  self.cfg.use_trop_corr)
+        chans = np.asarray(chans)
+        for k, m in enumerate(ms):
+            self.fixes[m] = (chans, prov_time[k], pos[k], el[k], az[k],
+                             dop[k])
+
+
 def nav_solve(cfg, sig, track_res) -> Optional[NavSolutions]:
     """Decode all channels, then fix every nav_sol_period_ms."""
     from .nav.dispatch import decode_channel
@@ -168,69 +221,74 @@ def nav_solve(cfg, sig, track_res) -> Optional[NavSolutions]:
     if n_meas < 1:
         return None
 
-    # time-parallel predict mode: mask measurement epochs inside each
-    # block's re-convergence transient (parallel/timeblocks.py)
-    settle = int(getattr(track_res, "settle_epochs", 0) or 0)
-    epb = int(getattr(track_res, "epochs_per_block", 0) or 0)
-
     with span("nav.pvt"):
+        meas = sample_start + step * np.arange(n_meas, dtype=np.int64)
+        # the channels each epoch may use whatever the fixes: decoded, not
+        # past their last sample, and in time-parallel predict mode outside
+        # each block's re-convergence transient (parallel/timeblocks.py);
+        # block boundaries differ across channels by up to a code period,
+        # so each channel is tested against its own abs_sample grid
+        usable = np.zeros((n_meas, n_ch), bool)
+        usable[:, active] = meas[:, None] < last_sample[active]
+        settle = int(getattr(track_res, "settle_epochs", 0) or 0)
+        epb = int(getattr(track_res, "epochs_per_block", 0) or 0)
+        if settle and epb:
+            for ch in active:
+                idx = np.searchsorted(track_res.abs_sample[ch], meas,
+                                      side="right") - 1
+                usable[:, ch] &= idx % epb >= settle
+        tx = transmit_times_batch(track_res, active, sub_start, tow, meas,
+                                  cfg, sig)
+        epochs = _FixEpochs(cfg, sig, track_res, eph_by_prn, tx, usable)
+        epochs.solve(0, np.zeros(n_ch, bool))
+
+        # the fixes in epoch order, as one scalar solve per epoch makes
+        # them: a channel leaves at the first fix that puts it below the
+        # elevation mask and never comes back (its elevation is no longer
+        # updated), so where the mask takes out a channel the solved set
+        # still holds, the epochs from there on are solved again without it
         sol = NavSolutions()
         local_time = np.inf
         sat_elev = np.full(n_ch, np.inf)
         for m in range(n_meas):
-            meas_sample = int(sample_start + step * m)
-            chans = [ch for ch in active
-                     if sat_elev[ch] >= cfg.elevation_mask_deg
-                     and meas_sample < last_sample[ch]]
+            chans = np.flatnonzero(usable[m]
+                                   & (sat_elev >= cfg.elevation_mask_deg))
             if len(chans) < 4:
                 continue
-            if settle and epb:
-                # block boundaries differ across channels by up to a code
-                # period, so each channel is tested against its own abs_sample
-                # grid; a channel inside a block's transient drops out of this
-                # measurement epoch only
-                chans = [ch for ch in chans
-                         if (int(np.searchsorted(track_res.abs_sample[ch],
-                                                 meas_sample, side="right"))
-                             - 1) % epb >= settle]
-                if len(chans) < 4:
-                    continue
-            tx = transmit_times(track_res, chans, sub_start, tow,
-                                meas_sample, cfg, sig)
-            raw_p, local_time = calculate_pseudoranges(tx, chans, local_time,
-                                                       cfg)
-            sat_pos = np.zeros((3, len(chans)))
-            sat_clk = np.zeros(len(chans))
-            for k, ch in enumerate(chans):
-                sat_pos[:, k], sat_clk[k] = sat_pos_for_signal(
-                    sig, tx[ch], eph_by_prn[track_res.prns[ch]])
-            obs = raw_p[chans] + sat_clk * SPEED_OF_LIGHT
-            xyzdt, el, az, dop = least_square_pos(sat_pos, obs,
-                                                  cfg.use_trop_corr)
-            if not np.all(np.isfinite(xyzdt)):
+            # the solved set holds every channel of the walk's (a channel
+            # leaves the walk no later than the solve), so it has a fix
+            if not np.array_equal(epochs.fixes[m][0], chans):
+                epochs.solve(m, ~(sat_elev >= cfg.elevation_mask_deg))
+            _, prov_time, xyz, el, az, dop = epochs.fixes[m]
+            if not np.isfinite(local_time):
+                local_time = prov_time
+            if not np.all(np.isfinite(xyz)):
                 continue
-            for ch, e in zip(chans, el):
-                sat_elev[ch] = e
-            local_time -= xyzdt[3] / SPEED_OF_LIGHT
-            sol.X.append(xyzdt[0])
-            sol.Y.append(xyzdt[1])
-            sol.Z.append(xyzdt[2])
-            sol.dt.append(0.0 if m == 0 else xyzdt[3])
+            # the pseudoranges were formed at the provisional local time; a
+            # common offset moves only the clock term (a rank failure's
+            # zero fix has none)
+            dt = (0.0 if np.isinf(dop[0])
+                  else xyz[3] + (local_time - prov_time) * SPEED_OF_LIGHT)
+            sat_elev[chans] = el
+            local_time -= dt / SPEED_OF_LIGHT
+            sol.X.append(xyz[0])
+            sol.Y.append(xyz[1])
+            sol.Z.append(xyz[2])
+            sol.dt.append(0.0 if m == 0 else dt)
             sol.dop.append(dop)
             sol.local_time.append(local_time)
-            sol.curr_meas_sample.append(meas_sample)
+            sol.curr_meas_sample.append(int(meas[m]))
             elv = np.full(n_ch, np.nan)
             azv = np.full(n_ch, np.nan)
-            for ch, e, a in zip(chans, el, az):
-                elv[ch], azv[ch] = e, a
+            elv[chans], azv[chans] = el, az
             sol.el.append(elv)
             sol.az.append(azv)
-            lat, lon, h = cart2geo(*xyzdt[:3], 5)
+            lat, lon, h = cart2geo(*xyz[:3], 5)
             sol.latitude.append(lat)
             sol.longitude.append(lon)
             sol.height.append(h)
             sol.utm_zone = find_utm_zone(lat, lon)
-            e_, n_, u_ = cart2utm(*xyzdt[:3], sol.utm_zone)
+            e_, n_, u_ = cart2utm(*xyz[:3], sol.utm_zone)
             sol.E.append(e_)
             sol.N.append(n_)
             sol.U.append(u_)
