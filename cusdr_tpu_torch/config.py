@@ -108,6 +108,13 @@ class ReceiverConfig:
                                         # rectified-I NBD/NBP detector
                                         # saturates near 1 on pure noise, so
                                         # a blackout only shows in power)
+    carrier_lock_test: str = "nbd_nbp"  # the lock gate's carrier test:
+                                        # 'nbd_nbp' = pll_lock_detector
+                                        # against lock_threshold, the
+                                        # reference's; 'in_phase_share' =
+                                        # |I_P| > |Q_P| in 80 % of the
+                                        # epochs (blind to sign flips,
+                                        # tracking/engine.py)
 
     # --- navigation solution (initSettings.m:106-121) -------------------------
     nav_sol_period_ms: int = 500
@@ -252,6 +259,9 @@ def gal_e5a() -> ReceiverConfig:
         fine_search_step=5.0, fine_n_codes=100,
         dll_noise_bandwidth=1.5, dll_correlator_spacing=0.5,
         pll_noise_bandwidth=15.0, int_time=0.001, pilot_trk_flag=1,
+        # NBD/NBP reads ~0.9 on the data arm's sign flips without carrier
+        # lock, so a hand-off outside the fine window is kept
+        carrier_lock_test="in_phase_share",
     )
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..constants import GPS_PI as GAL_PI
+from ..runtime.profiling import span
 from .bitfields import extract_fields, get_bits, place_fields, put_bits
 from .fec import conv_encode, crc24q_append, crc24q_check, viterbi_decode
 
@@ -183,8 +184,9 @@ def inav_decode_symbol_stream(symbols: np.ndarray, eph: dict | None = None):
             ok = True
             for h in range(2):
                 body = page[10 + 250 * h: 250 * (h + 1)]
-                deint = _deinterleave(body, 30, 8)
-                bits = gal_viterbi_decode(deint, 120)
+                with span("nav.fec"):
+                    deint = _deinterleave(body, 30, 8)
+                    bits = gal_viterbi_decode(deint, 120)
                 halves.append(bits)
             if halves[0][0] != 0 or halves[1][0] != 1:
                 k += 500
@@ -306,8 +308,9 @@ def fnav_decode_symbol_stream(symbols: np.ndarray, eph: dict | None = None):
         page_idx = 0
         while k + 500 <= len(sym):
             body = pol * sym[k + 12:k + 500]
-            deint = _deinterleave(body, 61, 8)
-            bits = gal_viterbi_decode(deint, 244)[:238]
+            with span("nav.fec"):
+                deint = _deinterleave(body, 61, 8)
+                bits = gal_viterbi_decode(deint, 244)[:238]
             pt = fnav_decode_page(bits, eph)
             if pt > 0:
                 if first is None:

@@ -69,6 +69,9 @@ class StageRecord:
     # the totals of the spans closed inside the stage while a profiler
     # recorded, by span name (nested spans each under their own name)
     spans: Dict[str, "StageRecord"] = dataclasses.field(default_factory=dict)
+    # the counters (``count``) added to inside the stage while a profiler
+    # recorded, by name
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 # the records of the StageTimer stages open now, innermost last: where a
@@ -121,6 +124,15 @@ class span:
         return False
 
 
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to the counter ``name`` of the innermost open
+    ``StageTimer`` stage while a ``torch.profiler`` session records (an
+    ``n`` of 0 makes the counter appear); otherwise does nothing."""
+    if _autograd_profiler._is_profiler_enabled and _OPEN_STAGES:
+        counts = _OPEN_STAGES[-1].counts
+        counts[name] = counts.get(name, 0) + n
+
+
 @dataclasses.dataclass
 class StageTimer:
     """Accumulates per-stage wall time and sample counts.
@@ -164,12 +176,15 @@ class StageTimer:
 
     def seconds(self) -> Dict[str, float]:
         """Each stage's seconds as ``<stage>_s`` and, where a profiler
-        recorded, each span's total as ``<span, "." as "_">_s``."""
+        recorded, each span's total as ``<span, "." as "_">_s`` and each
+        counter's under its name."""
         out = {f"{name}_s": rec.seconds for name, rec in self.stages.items()}
         for rec in self.stages.values():
             for name, sp in rec.spans.items():
                 key = name.replace(".", "_") + "_s"
                 out[key] = out.get(key, 0.0) + sp.seconds
+            for name, n in rec.counts.items():
+                out[name] = out.get(name, 0) + n
         return out
 
     def report(self) -> str:

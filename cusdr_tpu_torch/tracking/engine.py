@@ -47,7 +47,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..runtime.profiling import span
+from ..runtime.profiling import count, span
 from ..signals.defs import SignalDef
 from ..ops.correlator import (clamp_offsets, correlate_bank,
                               correlate_windows, pack_sums, stage_windows,
@@ -59,6 +59,12 @@ from .loop_filters import (calc_loop_coef, calc_loop_coef_carr3,
 from .qmboc import calc_weighing_factor
 
 _TWO_PI = 2.0 * np.pi
+# the 'in_phase_share' carrier test: a channel holds carrier lock where its
+# prompt's in-phase part outweighs its quadrature part in this share of the
+# epochs (a loop in phase lock: nearly all of them; a carrier that rotates:
+# about half, whatever the data and secondary-code signs)
+IN_PHASE_SHARE = 0.8
+CARRIER_LOCK_TESTS = ("nbd_nbp", "in_phase_share")
 # replica table margin [samples]: the reference's value, so both packages
 # build bit-identical tables
 UP_MARGIN = 1024
@@ -876,6 +882,19 @@ def superblock_windows(n_epochs: int, sb_epochs: int, spc: int,
     return plan
 
 
+def carrier_unlocked(cfg, i_p: np.ndarray, q_p: np.ndarray) -> bool:
+    """The lock gate's carrier test (``cfg.carrier_lock_test``) on one
+    channel's prompts over the last ``vsm`` epochs: 'nbd_nbp' is the
+    reference's NBD/NBP detector (``cno.pll_lock_detector``) under
+    ``cfg.lock_threshold``; it rectifies I, so on a data arm whose signs
+    flip every epoch it reads ~0.9 with the carrier rotating.
+    'in_phase_share' counts the epochs with |I| > |Q| under
+    ``IN_PHASE_SHARE``, blind to every sign."""
+    if cfg.carrier_lock_test == "in_phase_share":
+        return bool(np.mean(np.abs(i_p) > np.abs(q_p)) < IN_PHASE_SHARE)
+    return pll_lock_detector(i_p, q_p) < cfg.lock_threshold
+
+
 def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
           device, n_epochs: Optional[int] = None) -> TrackResults:
     """Host loop: stage superblocks on ``device``, run the engine,
@@ -887,6 +906,9 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
     period counter (``init_channel_state``).  For an FDMA signal the prn is
     the frequency channel k and the carrier includes its offset.
     """
+    if cfg.carrier_lock_test not in CARRIER_LOCK_TESTS:
+        raise ValueError(f"carrier_lock_test {cfg.carrier_lock_test!r} is "
+                         f"none of {CARRIER_LOCK_TESTS}")
     with span("trk.setup"):
         device = torch.device(device)
         params = make_track_params(cfg, sig)
@@ -914,6 +936,7 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
                             samples_iq.dtype, device)
     vsm = cfg.cno.vsm_interval_ms
     low_lock = np.zeros(len(channels), np.int32)
+    dropped = np.zeros(len(channels), bool)
     base_pwr = [None]
     chunks = []
     drop_ratio = 10.0 ** (-cfg.lock_power_drop_db / 10.0)
@@ -924,11 +947,12 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
         ``sb_start``) and run the lock gate on them; returns a drop mask
         for the carry state, or None.
 
-        Lock gate: the PLL NBD/NBP detector plus a prompt-power gate
-        against the channel's running-max power; a channel failing either
-        for 2 consecutive superblocks is dropped.  The fetch lags the
-        dispatch by one superblock, so a drop takes effect one superblock
-        later than in a synchronous loop (as in the reference)."""
+        Lock gate: the carrier test (``carrier_unlocked``) plus a
+        prompt-power gate against the channel's running-max power; a
+        channel failing either for 2 consecutive superblocks is dropped.
+        The fetch lags the dispatch by one superblock, so a drop takes
+        effect one superblock later than in a synchronous loop (as in the
+        reference)."""
         with span("trk.wait"):
             if done is not None:
                 done.synchronize()
@@ -957,9 +981,8 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
         for c in range(len(channels)):
             if not alive[c]:
                 continue
-            pld = pll_lock_detector(out_np.i_p[-vsm:, c],
+            bad = (carrier_unlocked(cfg, out_np.i_p[-vsm:, c],
                                     out_np.q_p[-vsm:, c])
-            bad = (pld < cfg.lock_threshold
                    or pwr[c] < drop_ratio * base_pwr[0][c])
             low_lock[c] = low_lock[c] + 1 if bad else 0
         drop = low_lock >= 2
@@ -976,6 +999,7 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
             iq = ring.put(samples_iq, sb_start, buf_len)
         with span("trk.launch"):
             if drop_mask is not None:
+                dropped |= drop_mask
                 state = state._replace(
                     active=state.active & _host_to(device, ~drop_mask))
             state, outs = track_superblock(iq, sb_start, tables, ptables,
@@ -989,6 +1013,7 @@ def track(cfg, sig: SignalDef, samples_iq: np.ndarray, channels: Sequence,
     if pending is not None:
         with span("trk.drain"):
             drain(*pending)
+    count("trk_lock_drops", int(dropped.sum()))
 
     with span("trk.results"):
         merged = {}

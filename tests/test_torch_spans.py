@@ -15,7 +15,14 @@ ms, run by ``Receiver.run`` once with no profiler and once under
   ``*_s`` total is >= 0, and each stage's direct sub-spans sum to no more
   than the stage's seconds (``trk.wait``, nested, counted once);
 - the results (acquisition, every ``TrackResults`` field, fixes) are equal
-  element for element with tracing on and off.
+  element for element with tracing on and off;
+- under the profiler ``timings`` also carries the lock gate's count of
+  dropped channels, ``trk_lock_drops`` (0: every SV holds lock).
+
+``nav.fec``: navigation's decode of an F/NAV prompt stream (pages with
+their sync words, the secondary code on every symbol) opens it inside
+``nav.decode`` for each page it de-interleaves and Viterbi-decodes, and
+``timings`` carries ``nav_fec_s`` only under a profiler; LNAV opens none.
 
 Also ``StageTimer``'s span collection and report, a span's own seconds with
 no profiler, and the CLI's ``--profile``: one trace of the whole run with
@@ -26,6 +33,7 @@ import json
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -33,9 +41,11 @@ import torch
 
 from cusdr_tpu_torch import get_config
 from cusdr_tpu_torch.io.synth import SynthSV, quantize_iq_int8, synthesize_if
-from cusdr_tpu_torch.receiver import Receiver
+from cusdr_tpu_torch.nav import galileo_nav
+from cusdr_tpu_torch.receiver import Receiver, nav_solve
 from cusdr_tpu_torch.runtime import profiling
 from cusdr_tpu_torch.runtime.profiling import StageTimer, span
+from cusdr_tpu_torch.signals import codes
 from cusdr_tpu_torch.signals.defs import get_signal
 from cusdr_tpu_torch.tracking import engine
 
@@ -138,7 +148,8 @@ def test_totals_reach_timings_and_sum_within_their_stage(runs):
     _, on, _ = runs
     t = on.timings
     want = {f"{s}_s" for s in STAGES} | {_key(n) for n in REACHED}
-    assert set(t) == want
+    assert set(t) == want | {"trk_lock_drops"}
+    assert t.pop("trk_lock_drops") == 0
     assert all(v >= 0.0 for v in t.values())
     for stage, names in SUB_SPANS.items():
         assert sum(t.get(_key(n), 0.0) for n in names) <= t[f"{stage}_s"]
@@ -232,3 +243,74 @@ def test_cli_profile_traces_the_whole_run(record, tmp_path):
                          "acq.coarse", "acq.fine", "tracking"]
     assert "trk.launch" in table and "nav.decode" in table
     assert table.index("navigation") < table.index("nav.decode")
+
+
+def _navigation(signal, i_p, traced):
+    """``nav_solve`` of one channel's prompts ``i_p`` in a "navigation"
+    stage, under a profiler or not.  Returns (the stage's timings, the
+    trace's "nav.decode" and "nav.fec" ranges)."""
+    from torch.profiler import ProfilerActivity, profile
+    trk = SimpleNamespace(prns=[4], i_p=i_p[None, :])
+    timer = StageTimer()
+    if not traced:
+        with timer.stage("navigation"):
+            assert nav_solve(get_config(signal), get_signal(signal),
+                             trk) is None
+        return timer.seconds(), {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with timer.stage("navigation"):
+            assert nav_solve(get_config(signal), get_signal(signal),
+                             trk) is None
+    ranges = {}
+    for ev in prof.events():
+        if ev.name in ("nav.decode", "nav.fec"):
+            ranges.setdefault(ev.name, []).append(
+                (ev.time_range.start, ev.time_range.end))
+    return timer.seconds(), ranges
+
+
+def _fnav_prompts():
+    """Three F/NAV pages of random bits behind their sync words, 20 ms
+    symbols, each epoch signed by the E5a-I secondary code."""
+    rng = np.random.default_rng(7)
+    bits = np.concatenate([np.concatenate([galileo_nav.FNAV_SYNC,
+                                           rng.integers(0, 2, 488)])
+                           for _ in range(3)])
+    sec = codes.E5AI_SECONDARY.astype(np.float64)
+    return 100.0 * np.repeat(1.0 - 2.0 * bits, 20) * np.tile(sec, len(bits))
+
+
+@pytest.mark.parametrize("traced", [False, True], ids=["untraced", "traced"])
+def test_nav_fec_opens_inside_nav_decode_for_fnav(traced):
+    t, ranges = _navigation("gal_e5a", _fnav_prompts(), traced)
+    if not traced:
+        assert set(t) == {"navigation_s"}
+        return
+    assert set(t) == {"navigation_s", "nav_decode_s", "nav_fec_s"}
+    (a, b), = ranges["nav.decode"]
+    assert len(ranges["nav.fec"]) >= 3
+    assert all(a <= s <= e <= b for s, e in ranges["nav.fec"])
+    assert 0.0 <= t["nav_fec_s"] <= t["nav_decode_s"] <= t["navigation_s"]
+
+
+def test_lnav_opens_no_nav_fec():
+    rng = np.random.default_rng(8)
+    t, ranges = _navigation("gps_l1ca", rng.normal(size=40_000), True)
+    assert set(t) == {"navigation_s", "nav_decode_s"}
+    assert "nav.fec" not in ranges and len(ranges["nav.decode"]) == 1
+
+
+def test_counters_reach_timings_only_under_a_profiler():
+    from torch.profiler import ProfilerActivity, profile
+    timer = StageTimer()
+    with timer.stage("tracking"):
+        profiling.count("trk_lock_drops", 2)
+    assert timer.seconds() == {"tracking_s":
+                               timer.stages["tracking"].seconds}
+    with profile(activities=[ProfilerActivity.CPU]):
+        for n in (0, 2, 1):
+            with timer.stage("tracking"):
+                profiling.count("trk_lock_drops", n)
+    profiling.count("trk_lock_drops", 5)          # outside every stage
+    assert timer.stages["tracking"].counts == {"trk_lock_drops": 3}
+    assert timer.seconds()["trk_lock_drops"] == 3
