@@ -7,8 +7,8 @@ Phases, each of which fails the run when it fails:
 
 1. environment: the card, its power limit, CUDA and nvcc versions;
 2. build the CUDA kernels from cusdr_tpu_torch/ops/csrc/correlator.cu,
-   correlator_staged.cu, superblock.cu and superblock_staged.cu (one nvcc
-   each, started together);
+   correlator_staged.cu, superblock.cu, superblock_staged.cu and fine.cu
+   (one nvcc each, started together);
 3. the fetch kernel against its plain PyTorch version at the main path's
    shapes (12 channels, and the 96 rows of eight time blocks, blk = 18 008
    samples, k = 9, both tap modes, some windows clamped at the record's
@@ -70,6 +70,14 @@ Phases, each of which fails the run when it fails:
    (one block per row bit for bit, raising on any differing element); per
    case the slow-path epochs, both times, the bound, and the fetch
    superblock kernel's time on the same bank, timed in turns with it;
+3g. acquisition's fine search (``pcps.fine_search``, ops/csrc/fine.cu)
+   against its plain version ``fine_search_plain`` on the same card
+   tensors at the fine shapes of gal_e5a (12 rows x 101 bins x 100
+   periods x 18 000 samples) and gps_l1ca (12 x 21 x 40 x 18 000): sums
+   within FINE_RTOL, each row's bin of largest power the plain version's
+   and the scene's, two launches equal to the bit, both times by CUDA
+   events and the bound; every ``Receiver.run`` below launches it once
+   (its ``acquire``), and its launches are read from phase 4's run;
 4. the main path at the gps_l1ca preset's full width (18 Msps, 12
    channels, 32 PRNs x 29 Doppler bins x 20 ms): ``Receiver.run`` on four
    seconds of a 12-SV synthetic scene; every SV acquired, every channel in
@@ -128,7 +136,8 @@ Phases, each of which fails the run when it fails:
 15. the gather path: ``Receiver.run`` at bds_b1c with ``sampling_freq``
    4.096 Msps (the 0.06-chip spacing is 0.24 samples) on a 2.5 s 15-SV
    scene at 47 dB-Hz, in NB and WB mode: every SV acquired, every channel
-   locked, no kernel of ops/ launched; 100 epochs of the card's gather
+   locked, no tracking kernel of ops/ launched (acquisition's one fine
+   search only); 100 epochs of the card's gather
    step held against the CPU's from the same states; then
    ``time_blocks=2`` on the per-block gather path, locked over each
    block's tail;
@@ -203,7 +212,7 @@ Phases, each of which fails the run when it fails:
    ``trk.results`` read from the span totals of its "tracking" stage.
 
 The scenes of phases 3e-19 are made in worker processes, one each, while
-the kernel checks of phases 1-3c run, and are all finished before the
+the kernel checks of phases 1-3c and 3g run, and are all finished before the
 host-bound measurements (the 500-epoch loops, phase 3d) and phase 4
 start.
 
@@ -313,6 +322,18 @@ SHAPES = (
     ("correlate_windows[int16]", "gps_l1ca int16", 12, 18008, 9),
 )
 INT16_SCALE = 64       # an int16 record made from an int8 one, times 64
+# phase 3g: acquisition's fine search (F1) at the fine shapes of the
+# presets whose benchmark cells run it, (preset, detected rows): gal_e5a
+# 12 x 101 bins x 100 periods x 18 000 samples, gps_l1ca 12 x 21 x 40 x
+# 18 000.  Its sums against the plain version's within FINE_RTOL *
+# (max|plain| + 1): each period's 18 000 products are added in another
+# order (per thread, a warp butterfly, warps, tiles) and with an FMA where
+# the plain version rounds the product, as the card tests hold them.
+# FINE_OPS: f32 operations a sample and bin (the phase, a full-accuracy
+# sincosf counted as 20, four products, four sums)
+FINE_SHAPES = (("gal_e5a", 12), ("gps_l1ca", 12))
+FINE_RTOL = 1e-4
+FINE_OPS = 30
 # phase 3c: a shared-memory budget that splits the ramp kernel's slice
 # into tiles through its ring of two stages at every cluster size (3 tiles
 # a block at 12 x 18 008 with 8 blocks a row), held to the plain version
@@ -370,6 +391,113 @@ def _timed(fn, n):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / n
+
+
+def _fine_inputs(preset, n_rows, seed=20):
+    """``fine_search``'s arguments at the preset's fine shape on the card:
+    a record of int8-sized noise holding each of ``n_rows`` PRNs' replicas
+    (``sample_code``, with one of its fine hypotheses' signs) at its own
+    segment start, on a fine bin of its own.  Returns (args, keywords,
+    hypotheses, envelope, the rows' true bins)."""
+    import numpy as np
+    import torch
+    from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.acquisition import pcps
+    from cusdr_tpu_torch.signals.defs import get_signal, sample_code
+    cfg, sig = get_config(preset), get_signal(preset)
+    fs, spc = cfg.sampling_freq, cfg.samples_per_code
+    n_codes = cfg.fine_n_codes or max(int(round(40.0 / sig.code_period_ms)),
+                                      4)
+    n_fine = int(round(cfg.acq_search_step / cfg.fine_search_step)) + 1
+    n_seg = n_codes * spc
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-40, 41, n_seg + 2 * spc)
+         + 1j * rng.integers(-40, 41, n_seg + 2 * spc))
+    prns = [int(p) for p in cfg.acq_satellite_list[:n_rows]]
+    cps = [int(c) for c in rng.integers(0, 2 * spc, n_rows)]
+    freqs = (cfg.if_freq + rng.uniform(-3000, 3000, (n_rows, 1))
+             + cfg.acq_search_step / 2
+             - cfg.fine_search_step * np.arange(n_fine)[None, :]
+             ).astype(np.float32)
+    truth = rng.integers(0, n_fine, n_rows)
+    t = np.arange(n_seg) / fs
+    tables, hyps, envelope = [], [], False
+    for j, prn in enumerate(prns):
+        code_fn, H = pcps.fine_setup(sig, prn, n_codes)
+        envelope = H is None
+        rep = sample_code(code_fn(prn), sig.elements_per_chip,
+                          sig.chip_rate_hz, fs, n_seg).astype(np.float32)
+        signs = np.ones(n_codes) if envelope else H[j % len(H)]
+        x[cps[j]:cps[j] + n_seg] += 8.0 * rep * np.repeat(signs, spc) \
+            * np.exp(2j * np.pi * float(freqs[j, truth[j]]) * t)
+        tables.append(torch.from_numpy(code_fn(prn).astype(np.int8)))
+        hyps.append(np.ones((1, n_codes), np.float32) if envelope else H)
+    dev = torch.device("cuda")
+    args = (torch.from_numpy(x.real.astype(np.float32)).to(dev),
+            torch.from_numpy(x.imag.astype(np.float32)).to(dev), cps,
+            torch.nn.utils.rnn.pad_sequence(tables, batch_first=True
+                                            ).to(dev),
+            [len(tb) for tb in tables], [0.0] * n_rows,
+            float(2.0 * np.pi * np.float32(1.0 / fs))
+            * torch.from_numpy(freqs).to(dev))
+    kw = dict(epc=sig.elements_per_chip, ratio=sig.chip_rate_hz / fs,
+              n_codes=n_codes, spc=spc)
+    return (args, kw, torch.from_numpy(np.stack(hyps)).to(dev), envelope,
+            truth.tolist())
+
+
+def fine_check(card):
+    """Phase 3g: ``pcps.fine_search`` (F1) against ``fine_search_plain`` on
+    the same card tensors at each of FINE_SHAPES: the sums within
+    FINE_RTOL * (max|plain| + 1), every row's bin of largest power the
+    plain version's and the scene's, a second launch equal to the bit;
+    both timed by CUDA events (back-to-back calls), beside the bound.
+    Returns one entry per shape."""
+    import torch
+    from cusdr_tpu_torch.acquisition import pcps
+    out = []
+    for preset, n_rows in FINE_SHAPES:
+        args, kw, hyp, envelope, truth = _fine_inputs(preset, n_rows)
+        sr, si = pcps.fine_search(*args, **kw)
+        sr2, si2 = pcps.fine_search(*args, **kw)
+        if not (torch.equal(sr, sr2) and torch.equal(si, si2)):
+            raise AssertionError(f"[fine {preset}] two launches differ")
+        pr, pi = pcps.fine_search_plain(*args, **kw)
+        err = max(float((sr - pr).abs().max()), float((si - pi).abs().max()))
+        tol = FINE_RTOL * (max(float(pr.abs().max()),
+                               float(pi.abs().max())) + 1.0)
+        bins = pcps._fine_powers(sr, si, hyp, envelope).argmax(1).tolist()
+        plain_bins = pcps._fine_powers(pr, pi, hyp, envelope
+                                       ).argmax(1).tolist()
+        if not err <= tol or bins != plain_bins or bins != truth:
+            raise AssertionError(
+                f"[fine {preset}] max|err| {err:.3g} (tol {tol:.3g}); bins "
+                f"{bins}, plain {plain_bins}, scene {truth}")
+        del pr, pi
+        ms = _timed(lambda: pcps.fine_search(*args, **kw), 20)
+        plain_ms = _timed(lambda: pcps.fine_search_plain(*args, **kw), 3)
+        n_det, n_fine = args[6].shape
+        n_codes, n_seg = kw["n_codes"], kw["n_codes"] * kw["spc"]
+        # each row's segment (two f32), the tables, omega and the sums
+        n_bytes = (8 * n_det * n_seg + args[3].numel()
+                   + 4 * n_det * n_fine * (1 + 2 * n_codes))
+        ops = FINE_OPS * n_det * n_fine * n_seg
+        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        t_ops = ops / PEAK_F32_FLOPS * 1e3
+        entry = dict(
+            shape=(f"{preset}: {n_det} rows x {n_fine} bins x {n_codes} "
+                   f"periods x {kw['spc']} samples"),
+            max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=n_bytes, operations=ops)
+        out.append(entry)
+        log(f"[fine] {entry['shape']} on {card}: max|err| {err:.3g} (tol "
+            f"{tol:.3g}), bins equal the plain version's and the scene's, "
+            f"relaunch equal to the bit; {ms:.4f} ms (CUDA events), plain "
+            f"{plain_ms:.3f} ms, bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']}): {entry['bound_ms'] / ms:.1%} of it")
+    return out
 
 
 def _bank_inputs(rng, n_ch, blk, k, n_pilots):
@@ -1343,9 +1471,7 @@ def run_path(card, tag, cfg, made, variant, pilot, tail_epochs,
     reset_launches()
     res = rx.run(iq)
     launches = dict(LAUNCHES)
-    others = {k: v for k, v in launches.items() if k != variant and v}
-    if others:
-        raise AssertionError(f"[{tag}] launched other variants: {others}")
+    _only(tag, launches, variant, launches[variant], fine=1)
     n_ep, snr, fr_err, acq_err = check_main(cfg, svs, res,
                                             launches[variant], tail_epochs,
                                             pilot, acq_carr_tol_hz,
@@ -1475,14 +1601,18 @@ def _signs_as_sequential(tag, trk, seq):
     return worst
 
 
-def _only(tag, launches, variant, want):
-    """``launches`` holds ``want`` launches of ``variant`` and none of any
-    other kernel."""
-    others = {k: v for k, v in launches.items() if k != variant and v}
-    if others or launches[variant] != want:
+def _only(tag, launches, variant, want, fine=0):
+    """``launches`` holds ``want`` launches of ``variant``, ``fine`` of
+    acquisition's fine search (one per ``acquire`` that detected a PRN:
+    ``Receiver.run`` makes one) and none of any other kernel."""
+    others = {k: v for k, v in launches.items()
+              if k not in (variant, "fine_search") and v}
+    if (others or launches[variant] != want
+            or launches["fine_search"] != fine):
         raise AssertionError(f"[{tag}] {launches[variant]} {variant} "
-                             f"launches, {want} expected; other kernels: "
-                             f"{others}")
+                             f"launches, {want} expected; "
+                             f"{launches['fine_search']} fine_search, "
+                             f"{fine} expected; other kernels: {others}")
 
 
 def time_parallel_path(card: str, made, seq_res):
@@ -1514,7 +1644,7 @@ def time_parallel_path(card: str, made, seq_res):
     if trk.n_blocks != TIME_BLOCKS or n_ep != TIME_BLOCKS * epb:
         raise AssertionError(f"[tp] {trk.n_blocks} blocks x {epb} epochs "
                              f"for {n_ep} epochs")
-    _only("tp", launches, "track_superblock", passes)
+    _only("tp", launches, "track_superblock", passes, fine=1)
     check_main(cfg, svs, res, None, tail_epochs=200)
     worst_snr = _block_tails_locked("tp", trk, 200)
     share = _signs_as_sequential("tp", trk, seq_res.track)
@@ -1628,7 +1758,7 @@ def pvt_time_parallel(card: str, made):
     reset_launches()
     res = Receiver(cfg, "cuda").run(samples)
     _only("pvt-tp", dict(LAUNCHES), "track_superblock",
-          cfg.handoff_iters + 1)
+          cfg.handoff_iters + 1, fine=1)
     if res.track.n_blocks != TIME_BLOCKS or res.track.settle_epochs != 0:
         raise AssertionError("[pvt-tp] not an exactly stitched 8-block run")
     _check_fixes("pvt-tp", card, scn, res, "test_e2e_timeparallel", 60,
@@ -1760,7 +1890,7 @@ def _run_sequential(tag, cfg, samples, variant):
     reset_launches()
     res = Receiver(cfg).run(samples)
     _only(tag, dict(LAUNCHES), variant,
-          _superblocks(cfg, res.track.i_p.shape[1]))
+          _superblocks(cfg, res.track.i_p.shape[1]), fine=1)
     return res
 
 
@@ -1987,7 +2117,7 @@ def glonass_path(card: str, made_l1, made_l2):
     res = Receiver(cfg, "cuda").run(iq)
     sec = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    _only("glo-l2-tp", launches, "track_superblock", passes)
+    _only("glo-l2-tp", launches, "track_superblock", passes, fine=1)
     check_main(cfg, svs, res, None, tail_epochs=100)
     trk = res.track
     worst = _block_tails_locked("glo-l2-tp", trk, 100)
@@ -2208,7 +2338,8 @@ def multi_signal_path(card: str, scenes):
     reset_launches()
     results = run_multi(entries, device="cuda", n_ms=2500)
     rm = dict(LAUNCHES)
-    want = {"track_superblock": 3, "track_superblock_pilot": 3}
+    want = {"track_superblock": 3, "track_superblock_pilot": 3,
+            "fine_search": 2}
     if {k: v for k, v in rm.items() if v} != want:
         raise AssertionError(f"[run-multi] launches {rm}")
     for (cfg, _), res, name, pilot in zip(entries, results, ("main", "e5a"),
@@ -2349,8 +2480,9 @@ def _gather_card_vs_cpu(tag, cfg, iq, channels):
 def gather_path(card: str, made):
     """Phase 15: ``Receiver.run`` at bds_b1c with ``sampling_freq`` 4.096
     Msps (15 channels) in NB and WB mode on the gather path: every SV
-    acquired, every channel locked, no kernel of ops/ launched; the card's
-    step against the CPU's; then ``time_blocks=2`` on the per-block gather
+    acquired, every channel locked, no tracking kernel of ops/ launched
+    (acquisition's one fine search only); the card's step against the
+    CPU's; then ``time_blocks=2`` on the per-block gather
     path, locked over each block's tail."""
     import warnings
     import torch
@@ -2374,8 +2506,9 @@ def gather_path(card: str, made):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             res = Receiver(cfg, "cuda").run(iq)
-        if any(LAUNCHES.values()):
-            raise AssertionError(f"[{tag}] kernels launched: "
+        if {k: v for k, v in LAUNCHES.items() if v} != {"fine_search": 1}:
+            raise AssertionError(f"[{tag}] kernels launched other than "
+                                 f"acquisition's one fine search: "
                                  f"{dict(LAUNCHES)}")
         n_ep, snr, fr_err, _ = check_main(cfg, svs, res, None,
                                           tail_epochs=100, pilot=True)
@@ -2384,8 +2517,8 @@ def gather_path(card: str, made):
             f"{res.timings['acquisition_s']:.3f} s; {n_ep} epochs of 10 ms "
             f"tracked in {res.timings['tracking_s']:.3f} s = {rt:.3f}x real "
             f"time ({res.timings['tracking_s'] / n_ep * 1e3:.3f} ms per "
-            f"epoch), 0 kernel launches; lowest prompt SNR (data, pilot) "
-            f"{[round(float(x.min()), 1) for x in snr]}, carrier error max "
+            f"epoch), 0 tracking kernel launches; lowest prompt SNR "
+            f"(data, pilot) {[round(float(x.min()), 1) for x in snr]}, carrier error max "
             f"{abs(fr_err).max():.2f} Hz")
         shown = _gather_card_vs_cpu(tag, cfg, iq, res.channels)
         with warnings.catch_warnings():
@@ -3348,7 +3481,7 @@ def full_size_path(card: str):
     seq = Receiver(cfg).run(iq8)
     n_ep = seq.track.i_p.shape[1]
     n_sb = _superblocks(cfg, n_ep)
-    _only("full", dict(LAUNCHES), "track_superblock", n_sb)
+    _only("full", dict(LAUNCHES), "track_superblock", n_sb, fine=1)
     launches = LAUNCHES["track_superblock"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     acq_err = _check_acquired(cfg, [
@@ -3376,7 +3509,8 @@ def full_size_path(card: str):
     reset_launches()
     res16 = Receiver(cfg.replace(data_type="int16")).run(iq16)
     del iq16
-    _only("full-int16", dict(LAUNCHES), "track_superblock[int16]", n_sb)
+    _only("full-int16", dict(LAUNCHES), "track_superblock[int16]", n_sb,
+          fine=1)
     launches16 = LAUNCHES["track_superblock[int16]"]
     peak16 = torch.cuda.max_memory_allocated() / 2 ** 20
     if res16.channels != seq.channels:
@@ -3409,7 +3543,7 @@ def full_size_path(card: str):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         res = Receiver(cfg.replace(time_blocks=n_blocks)).run(iq8)
-        _only(tag, dict(LAUNCHES), "track_superblock", passes)
+        _only(tag, dict(LAUNCHES), "track_superblock", passes, fine=1)
         flat[n_blocks] = LAUNCHES["track_superblock"]
         _time_parallel_full(card, tag, scn, res, seq,
                             f"flat bank of {n_blocks * n_ch} rows, a "
@@ -3697,6 +3831,23 @@ def _kernel_json(name, launches, checks):
         "shapes": shapes}
 
 
+def _fine_json(launches, shapes):
+    """F1's entry of the JSON line: ``ms`` / ``plain_ms`` / ``bound_ms``
+    at the first of FINE_SHAPES, every shape under ``shapes``."""
+    first = shapes[0]
+    return {
+        "name": "fine_search", "route": "cuda", "source": _CSRC + "fine.cu",
+        # the reference's fine stage is left to XLA: no Pallas kernel
+        "replaces": None, "launches": launches,
+        "max_abs_err": max(s["max_abs_err"] for s in shapes),
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": None,
+        "ms_from": ("CUDA events over back-to-back launches; plain_ms the "
+                    "same way"),
+        "shapes": shapes}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3734,6 +3885,7 @@ def main() -> int:
         for c in checks["correlate_windows_ramp"]:
             c["rows"][True].update(ramp_layout(c["label"], c["n_ch"],
                                                c["blk"], c["k"]))
+        fine = fine_check(smi)
         t0 = time.perf_counter()
         scenes = {name: job.result() for name, job in jobs.items()}
         log(f"[scenes] waited {time.perf_counter() - t0:.1f} s for the "
@@ -3749,6 +3901,10 @@ def main() -> int:
     from cusdr_tpu_torch import get_config
     b1c_cfg = get_config("bds_b1c", **B1C_WB)
     launches["track_superblock"], seq_res = main_path(smi, scenes["main"])
+    # acquisition's fine search in the main path's run (counts reset just
+    # before it; run_path held it to one launch)
+    from cusdr_tpu_torch.ops.correlator import LAUNCHES
+    launches["fine_search"] = LAUNCHES["fine_search"]
     launches["correlate_bank"] = eager_track(
         smi, "main", get_config("gps_l1ca"), scenes["main"], seq_res,
         "correlate_bank", 1000)
@@ -3796,6 +3952,7 @@ def main() -> int:
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     kernels = [_kernel_json(name, launches[name], checks[name])
                for name in checks]
+    kernels.append(_fine_json(launches["fine_search"], fine))
     for entry in kernels:
         if entry["name"] == "track_superblock":
             # the same kernel on the other presets' paths

@@ -20,10 +20,20 @@ Then, for a long pilot (L2C CL), the search over its code periods (a
 matmul of the hypotheses' replicas against the wiped segment), and the
 fine stage's bit-edge, secondary-code, coherent and envelope hypothesis
 modes.
+
+The fine stage's per-code-period sums are ``fine_search``, which takes the
+place of the reference's ``_fine_kernel`` / ``_fine_batched``: on a CUDA
+tensor one launch of ops/csrc/fine.cu, which draws each sample's replica
+from the detected PRN's code table (cached on the device) and wipes and
+sums in registers, so that neither a sampled replica nor an [n_fine ×
+segment] product exists; on a CPU tensor ``fine_search_plain``, the same
+replica index and the reference's arithmetic in torch.  The hypotheses are
+combined after it, as in the reference.
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -31,7 +41,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..runtime.profiling import span
+from ..ops import correlator as ops
+from ..runtime.profiling import count, span
 from ..signals.defs import SignalDef, sample_code
 
 
@@ -238,47 +249,147 @@ def _pcps_circshift_kernel(slabs, code_fft_conj, weights, sub_offsets, ts,
 # Fine stage
 # --------------------------------------------------------------------------
 
-def _fine_kernel(sig_r, sig_i, code_replica, freqs, hyp, ts,
-                 envelope: bool = False):
-    """Fine-frequency search by long coherent integration.
+def _check_fine(sig_r, sig_i, cps, tables, lengths, offsets, omega,
+                epc: int, n_codes: int, spc: int) -> None:
+    """Raises on what neither ``fine_search`` nor its plain version
+    takes."""
+    dev = sig_r.device
+    for name, x, dt, dim in (("sig_r", sig_r, torch.float32, 1),
+                             ("sig_i", sig_i, torch.float32, 1),
+                             ("tables", tables, torch.int8, 2),
+                             ("omega", omega, torch.float32, 2)):
+        if x.dtype != dt or x.dim() != dim:
+            raise ValueError(f"{name} must be a {dim}-D {dt} tensor, got "
+                             f"{x.dtype} of shape {tuple(x.shape)}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, sig_r on {dev}")
+    if sig_i.shape != sig_r.shape:
+        raise ValueError("sig_r and sig_i differ in length")
+    n_det = len(cps)
+    if not (len(lengths) == len(offsets) == tables.shape[0]
+            == omega.shape[0] == n_det):
+        raise ValueError(f"{n_det} segment starts, {len(lengths)} lengths, "
+                         f"{len(offsets)} offsets, {tables.shape[0]} table "
+                         f"rows and {omega.shape[0]} omega rows")
+    if min(epc, n_codes, spc) < 1:
+        raise ValueError("epc, n_codes and spc must be >= 1")
+    n_seg = n_codes * spc
+    if any(not 1 <= int(L) <= tables.shape[1] for L in lengths):
+        raise ValueError(f"a code length outside [1, {tables.shape[1]}]: "
+                         "the table is shorter than its code")
+    if any(cp < 0 or cp + n_seg > sig_r.shape[0] for cp in cps):
+        raise ValueError(f"a segment of {n_codes} x {spc} samples runs "
+                         f"past the record's {sig_r.shape[0]}")
 
-    sig_r/sig_i:  [n_codes * spc] f32 I/Q starting at the code edge
-    code_replica: [n_codes * spc] f32 (±1 sampled replica)
-    freqs:        [n_fine] f32 candidate carrier frequencies
-    hyp:          [n_hyp, n_codes] f32 coherent-combination hypotheses
-                  over per-code sums (bit-edge windows, secondary-code
-                  phases)
-    envelope:     sum |per-code sums| instead
 
-    Returns power [n_fine] (max over hypotheses).
-    """
-    n_codes = hyp.shape[1]
-    spc = sig_r.shape[0] // n_codes
-    n = torch.arange(sig_r.shape[0], dtype=torch.float32,
-                     device=sig_r.device)
-    wr = sig_r * code_replica
-    wi = sig_i * code_replica
-    phase = (float(2.0 * np.pi * ts) * freqs)[:, None] * n[None, :]
-    c, sn = torch.cos(phase), torch.sin(phase)
-    sr = (wr * c + wi * sn).reshape(-1, n_codes, spc).sum(dim=2)
-    si = (wi * c - wr * sn).reshape(-1, n_codes, spc).sum(dim=2)
+def table_replica(table, length: int, offset: float, *, epc: int,
+                  ratio: float, n_samples: int):
+    """``sample_code``'s replica drawn from a code table on its device:
+    element ⌊(offset + n·ratio)·epc⌋ mod length of ``table`` for n in
+    [0, n_samples), the index formed in f64 as ``sample_code`` forms it."""
+    k = torch.arange(n_samples, dtype=torch.float64, device=table.device)
+    idx = torch.floor((float(offset) + k * float(ratio)) * epc).long()
+    return table[torch.remainder(idx, int(length))]
+
+
+def fine_search_plain(sig_r, sig_i, cps, tables, lengths, offsets, omega,
+                      *, epc: int, ratio: float, n_codes: int, spc: int):
+    """Plain PyTorch version of ``fine_search``, same arguments.
+
+    Each row's replica is drawn from its table (``table_replica``), then
+    wiped and summed as the reference's ``_fine_kernel`` does, one
+    [n_fine, n_codes·spc] product per row."""
+    _check_fine(sig_r, sig_i, cps, tables, lengths, offsets, omega, epc,
+                n_codes, spc)
+    n_seg = n_codes * spc
+    n = torch.arange(n_seg, dtype=torch.float32, device=sig_r.device)
+    out_r, out_i = [], []
+    for j, cp in enumerate(cps):
+        rep = table_replica(tables[j], lengths[j], offsets[j], epc=epc,
+                            ratio=ratio, n_samples=n_seg).float()
+        wr = sig_r[cp:cp + n_seg] * rep
+        wi = sig_i[cp:cp + n_seg] * rep
+        phase = omega[j][:, None] * n[None, :]
+        c, sn = torch.cos(phase), torch.sin(phase)
+        out_r.append((wr * c + wi * sn).reshape(-1, n_codes, spc).sum(dim=2))
+        out_i.append((wi * c - wr * sn).reshape(-1, n_codes, spc).sum(dim=2))
+    return torch.stack(out_r), torch.stack(out_i)
+
+
+def fine_search(sig_r, sig_i, cps, tables, lengths, offsets, omega, *,
+                epc: int, ratio: float, n_codes: int, spc: int):
+    """Per-code-period sums of the fine-frequency search, for every
+    detected row at once.
+
+    sig_r/sig_i: [S] f32 record; cps: host ints, each row's segment start
+    (the code edge); tables: [n_det, L_max] int8 code-element tables;
+    lengths: host ints, each row's code length L (<= L_max); offsets: host
+    floats, each row's code phase in chips at its segment start (a long
+    pilot's period); omega: [n_det, n_fine] f32, ``float(2π·ts) · freqs``;
+    epc: elements per chip; ratio: chip rate / fs, as ``sample_code``
+    forms it.  Sample n of row j is wiped by ``table[j][e(n)]`` with e(n) =
+    ⌊(offsets[j] + n·ratio)·epc⌋ mod L and by the carrier at f32 phase
+    omega·n.  Returns (sr, si), f32 [n_det, n_fine, n_codes]: the real and
+    imaginary sums of each code period.
+
+    On a CUDA tensor one launch of ops/csrc/fine.cu (built at first use)
+    or an error; on a CPU tensor ``fine_search_plain``.  A launch adds one
+    to ``LAUNCHES["fine_search"]``."""
+    dev = sig_r.device
+    if dev.type == "cpu":
+        return fine_search_plain(sig_r, sig_i, cps, tables, lengths, offsets,
+                                 omega, epc=epc, ratio=ratio,
+                                 n_codes=n_codes, spc=spc)
+    _check_fine(sig_r, sig_i, cps, tables, lengths, offsets, omega, epc,
+                n_codes, spc)
+    if dev.type != "cuda":
+        raise ValueError(f"no fine search for device {dev}")
+    if not all(x.is_contiguous() for x in (sig_r, sig_i, tables, omega)):
+        raise ValueError("fine_search: sig_r, sig_i, tables and omega must "
+                         "be contiguous")
+    lib = ops.load_library("fine")
+    if n_codes * spc > lib.fine_search_max_samples():
+        # the kernel carries the sample index n in f32 (the phase omega·n)
+        raise ValueError(f"{n_codes} x {spc} samples: the kernel's f32 "
+                         "sample index is exact only below "
+                         f"{lib.fine_search_max_samples()}")
+    n_det, n_fine = omega.shape
+    n_tiles = -(-spc // lib.fine_search_tile_samples())
+    rows = torch.tensor([list(cps), list(lengths)], dtype=torch.int64
+                        ).to(dev)
+    offs = torch.tensor(list(offsets), dtype=torch.float64).to(dev)
+    partial = torch.empty((n_det, n_fine, n_codes, n_tiles, 2),
+                          dtype=torch.float32, device=dev)
+    sr = torch.empty((n_det, n_fine, n_codes), dtype=torch.float32,
+                     device=dev)
+    si = torch.empty_like(sr)
+    rc = lib.fine_search_launch(
+        sig_r.data_ptr(), sig_i.data_ptr(), rows[0].data_ptr(),
+        tables.data_ptr(), tables.shape[1], rows[1].data_ptr(),
+        offs.data_ptr(), omega.data_ptr(), partial.data_ptr(),
+        sr.data_ptr(), si.data_ptr(), n_det, n_fine, n_codes, spc, n_tiles,
+        int(epc), float(ratio), torch.cuda.current_stream(dev).cuda_stream)
+    ops._launched("fine_search", rc)
+    return sr, si
+
+
+def _fine_powers(sr, si, hyp, envelope: bool):
+    """Each row's power per fine bin, [n_det, n_fine]: the largest over
+    hypotheses hyp [n_det, n_hyp, n_codes] of the coherent combinations'
+    magnitude, or with ``envelope`` the sum of the code periods'
+    magnitudes."""
     if envelope:
-        return torch.hypot(sr, si).sum(dim=1)
-    return torch.hypot(sr @ hyp.T, si @ hyp.T).max(dim=1).values
+        return torch.hypot(sr, si).sum(dim=2)
+    h = hyp.transpose(1, 2)
+    return torch.hypot(sr @ h, si @ h).max(dim=2).values
 
 
-def _fine_batched(sig_r, sig_i, cps, replicas, freqs, hyp, ts,
-                  envelope: bool = False):
-    """`_fine_kernel` over detected PRNs, each on its segment of the
-    record starting at cps[j] (host ints).
-
-    replicas: [n_det, n_codes*spc]; freqs: [n_det, n_fine];
-    hyp: [n_det, n_hyp, n_codes].  Returns powers [n_det, n_fine]."""
-    n_seg = replicas.shape[1]
-    return torch.stack([
-        _fine_kernel(sig_r[cp:cp + n_seg], sig_i[cp:cp + n_seg],
-                     replicas[j], freqs[j], hyp[j], ts, envelope=envelope)
-        for j, cp in enumerate(cps)])
+@functools.lru_cache(maxsize=256)
+def _fine_table(code_fn, prn: int, device):
+    """The code table of ``code_fn(prn)`` (one signal component's code
+    elements) as int8 on ``device``: uploaded once, never written."""
+    return torch.from_numpy(np.ascontiguousarray(
+        code_fn(prn), dtype=np.int8)).to(device)
 
 
 def _pilot_phase_kernel(sig_r, sig_i, cps, freqs, reps, ts):
@@ -315,13 +426,34 @@ def _bit_edge_hypotheses(n_codes: int, window: int) -> np.ndarray:
 
 
 def _secondary_hypotheses(secondary: np.ndarray, n_codes: int) -> np.ndarray:
-    """All circular shifts of a secondary code, tiled to n_codes."""
+    """All circular shifts of a secondary code, tiled to n_codes: row k
+    is ``np.tile(np.roll(secondary, k), ...)[:n_codes]``."""
     m = len(secondary)
-    reps = int(np.ceil(n_codes / m))
-    H = np.zeros((m, n_codes), np.float32)
-    for k in range(m):
-        H[k] = np.tile(np.roll(secondary, k), reps)[:n_codes]
-    return H
+    shift = np.arange(n_codes)[None, :] - np.arange(m)[:, None]
+    return np.asarray(secondary, np.float32)[shift % m]
+
+
+def fine_setup(sig: SignalDef, prn: int, n_codes: int):
+    """(code_fn, hypotheses H [n_hyp, n_codes] or None = envelope) of the
+    fine stage for this PRN."""
+    nav_codes = max(int(round(sig.nav_symbol_ms / sig.code_period_ms)), 1)
+    psec = sig.pilot_secondary(int(prn)) \
+        if sig.pilot_secondary is not None else None
+    if sig.pilot_code is not None and psec is None:
+        # a pilot with no secondary: fully coherent (L2C CL, B2a); a long
+        # pilot's replica starts at the period the CL search found
+        return sig.pilot_code, np.ones((1, n_codes), np.float32)
+    if psec is not None and len(psec) <= 100:
+        return sig.pilot_code, _secondary_hypotheses(psec, n_codes)
+    if sig.data_secondary is not None and len(sig.data_secondary) <= 100:
+        return sig.data_code, _secondary_hypotheses(sig.data_secondary,
+                                                    n_codes)
+    if nav_codes > 1:
+        return sig.data_code, _bit_edge_hypotheses(
+            n_codes, min(nav_codes, max(n_codes // 2, 1)))
+    if nav_codes == 1 and psec is None:
+        return sig.data_code, np.eye(n_codes, dtype=np.float32)
+    return sig.data_code, None     # envelope mode
 
 
 # --------------------------------------------------------------------------
@@ -455,29 +587,6 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
         code_phase = np.zeros(len(prns), np.int64)
         fine_step = cfg.fine_search_step
         n_fine = int(round(cfg.acq_search_step / fine_step)) + 1
-        nav_codes = max(int(round(sig.nav_symbol_ms / sig.code_period_ms)), 1)
-
-        def fine_setup(prn: int):
-            """(code_fn, hypotheses H or None=envelope) for this PRN."""
-            psec = sig.pilot_secondary(int(prn)) \
-                if sig.pilot_secondary is not None else None
-            if sig.pilot_code is not None and psec is None:
-                # a pilot with no secondary: fully coherent (L2C CL, B2a);
-                # a long pilot's replica starts at the period the CL search
-                # found
-                return sig.pilot_code, np.ones((1, n_codes), np.float32)
-            if psec is not None and len(psec) <= 100:
-                return sig.pilot_code, _secondary_hypotheses(psec, n_codes)
-            if sig.data_secondary is not None \
-                    and len(sig.data_secondary) <= 100:
-                return sig.data_code, _secondary_hypotheses(
-                    sig.data_secondary, n_codes)
-            if nav_codes > 1:
-                return sig.data_code, _bit_edge_hypotheses(
-                    n_codes, min(nav_codes, max(n_codes // 2, 1)))
-            if nav_codes == 1 and psec is None:
-                return sig.data_code, np.eye(n_codes, dtype=np.float32)
-            return sig.data_code, None     # envelope mode
 
         pilot_phase = np.zeros(len(prns), np.int64)
         det_idx = [i for i in range(len(prns)) if detected[i]]
@@ -532,21 +641,20 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
                         pilot_phase[i] = (int(ph_seg[j])
                                           + back_periods) % nhyp
 
-            replicas = np.empty((n_det, n_codes * spc), np.float32)
+            rows, offsets = [], []
             Hs = None
             envelope = False
             for j, i in enumerate(det_idx):
-                code_fn, H = fine_setup(int(prns[i]))
+                code_fn, H = fine_setup(sig, int(prns[i]), n_codes)
                 # a pilot-based fine stage on a long pilot starts its replica
                 # at the period found for the SEGMENT at cps[j]
                 fine_offset_chips = 0.0
                 if ph_seg is not None and code_fn is sig.pilot_code:
                     fine_offset_chips = float(int(ph_seg[j])
                                               * sig.code_length_chips)
-                replicas[j] = sample_code(
-                    code_fn(0 if sig.fdma else int(prns[i])),
-                    sig.elements_per_chip, sig.chip_rate_hz, fs, n_codes * spc,
-                    code_phase_chips=fine_offset_chips).astype(np.float32)
+                rows.append(_fine_table(
+                    code_fn, 0 if sig.fdma else int(prns[i]), device))
+                offsets.append(fine_offset_chips)
                 envelope = H is None
                 if Hs is None:
                     Hs = np.empty((n_det,) + (np.ones((1, n_codes))
@@ -556,11 +664,16 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
             fine_freqs = (cfreqs[:, None] + cfg.acq_search_step / 2
                           - fine_step * np.arange(n_fine)[None, :]
                           ).astype(np.float32)
-            powers = _fine_batched(
-                seg_r, seg_i, cps, torch.from_numpy(replicas).to(device),
-                torch.from_numpy(fine_freqs).to(device),
-                torch.from_numpy(Hs).to(device), ts,
-                envelope=envelope).cpu().numpy()
+            omega = float(2.0 * np.pi * ts) * torch.from_numpy(
+                fine_freqs).to(device)
+            sr, si = fine_search(
+                seg_r, seg_i, cps,
+                torch.nn.utils.rnn.pad_sequence(rows, batch_first=True),
+                [len(r) for r in rows], offsets, omega,
+                epc=sig.elements_per_chip, ratio=sig.chip_rate_hz / fs,
+                n_codes=n_codes, spc=spc)
+            powers = _fine_powers(sr, si, torch.from_numpy(Hs).to(device),
+                                  envelope).cpu().numpy()
             for j, i in enumerate(det_idx):
                 carr_freq[i] = fine_freqs[j, int(np.argmax(powers[j]))]
                 if carr_freq[i] == 0.0:
@@ -568,6 +681,8 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
                 code_phase[i] = int(phase_idx[i])
                 code_phase[i], carr_freq[i] = recover(code_phase[i],
                                                       carr_freq[i], rs_info)
+        # the detected PRNs whose fine search ran (0 included)
+        count("acq_fine_rows", len(det_idx))
 
     return AcquisitionResult(
         prns=prns, carr_freq=carr_freq, code_phase=code_phase,

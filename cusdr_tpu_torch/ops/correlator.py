@@ -1,7 +1,7 @@
 """Epoch correlators for a channel bank: the CUDA kernels and their plain
 PyTorch versions.
 
-Three kernel sources.  Two hold one wrapper per TPU kernel they replace:
+Five kernel sources.  Two hold one wrapper per TPU kernel they replace:
 
 ``csrc/correlator.cu`` — ``correlate_bank`` replaces ``correlate_bank_hbm``
 (cusdr_tpu/ops/correlator.py:563; Pallas call built by ``_build_call_hbm``,
@@ -35,6 +35,12 @@ copies that run ahead of the sums and across the loop closing
 (``stage_plan`` lays the ring out).  Its plain version is the eager loop on
 staged windows (``fetch_in_kernel=False``), which calls
 ``correlate_windows`` once per epoch.
+
+``csrc/fine.cu`` — ``fine_search_launch`` replaces no TPU kernel: the
+reference leaves acquisition's fine search to XLA.  It computes that
+search's per-code-period sums, replica drawn from the code tables inside
+the kernel; its wrapper and plain version are ``acquisition.pcps
+.fine_search`` and ``fine_search_plain``, which count its launches here.
 
 On a CUDA tensor a wrapper launches its kernel (built with nvcc for sm_90a
 at first use, loaded with ctypes, launched on PyTorch's current stream) or
@@ -89,12 +95,13 @@ _TWO_PI = float(np.float32(2.0 * np.pi))
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-# kernel sources by library name; all include correlator_common.cuh, the
+# kernel sources by library name; all but fine.cu (acquisition's fine
+# search, which includes none) include correlator_common.cuh, the
 # superblock kernels superblock_common.cuh, the two that copy windows into
 # shared memory themselves (the staged superblock and the phase-ramp
 # kernels) bulk_copy.cuh
 SOURCES = ("correlator", "correlator_staged", "superblock",
-           "superblock_staged")
+           "superblock_staged", "fine")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the u·v kernels keep u (2 * ceil(blk / 128) floats) and v (256 floats) in
@@ -124,7 +131,8 @@ _INT16_VARIANTS = tuple(f"{v}[int16]" for v in (
 # (chip_smoke.py reads them to show each path ran on its kernel)
 LAUNCHES = dict.fromkeys(VARIANTS + WINDOW_VARIANTS + (
     "correlate_windows_ramp", "correlate_windows_table")
-    + SUPERBLOCK_VARIANTS + STAGED_SUPERBLOCK_VARIANTS + _INT16_VARIANTS, 0)
+    + SUPERBLOCK_VARIANTS + STAGED_SUPERBLOCK_VARIANTS + _INT16_VARIANTS
+    + ("fine_search",), 0)
 
 
 def launch_name(variant: str, dtype) -> str:
@@ -195,6 +203,13 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
             "track_superblock_staged_launch": [
                 ctypes.POINTER(SuperblockArgs), i32, i32, i32,
                 i32, i32, i32, i32, i32, i32, p, p]}
+    elif name == "fine":
+        signatures = {
+            "fine_search_tile_samples": [],
+            "fine_search_max_samples": [],
+            "fine_search_launch": [
+                p, p, p, p, i64, p, p, p, p, p, p,
+                i32, i32, i32, i32, i32, i32, ctypes.c_double, p]}
     else:
         signatures = {
             "correlate_windows_launch": [
@@ -205,12 +220,12 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
                 i32, i32, i32, i32, i32, p],
             "correlate_windows_table_launch": [
                 p, p, p, p, p, p, p, p, p, i32, i32, i32, i64, p]}
-    # every launch reading the record has an int16 twin of the same
+    # a launch with an int16 twin (one reading int16 records) has the same
     # signature
     signatures.update({fn + "_int16": argtypes
                        for fn, argtypes in list(signatures.items())
-                       if fn.endswith("_launch") and "_ramp" not in fn
-                       and "_table" not in fn})
+                       if fn.endswith("_launch")
+                       and hasattr(lib, fn + "_int16")})
     for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int

@@ -27,7 +27,11 @@ from cusdr_tpu.signals.defs import get_signal
 from cusdr_tpu_torch import get_config as t_get_config
 from cusdr_tpu_torch.acquisition import pcps as tpcps
 from cusdr_tpu_torch.acquisition.pcps import acquire as t_acquire
+from cusdr_tpu_torch.acquisition.resample import maybe_resample
+from cusdr_tpu_torch.ops.correlator import LAUNCHES as t_LAUNCHES
+from cusdr_tpu_torch.signals.defs import REGISTRY as T_REGISTRY
 from cusdr_tpu_torch.signals.defs import get_signal as t_get_signal
+from cusdr_tpu_torch.signals.defs import sample_code as t_sample_code
 from cusdr_tpu_torch.tracking.engine import make_track_params
 
 from test_torch_threads import few_torch_threads  # noqa: F401 (autouse)
@@ -239,3 +243,151 @@ def test_pilot_phase_kernel_matches_reference():
         torch.from_numpy(sig_r), torch.from_numpy(sig_i), cps,
         torch.from_numpy(freqs), torch.from_numpy(reps), TS)
     assert got.tolist() == np.asarray(ref).tolist() == truth
+
+
+# ---- the fine stage on code tables (fine_search) ---------------------------
+
+def _fine_n_codes(cfg, sig):
+    return cfg.fine_n_codes or max(
+        int(round(40.0 / max(sig.code_period_ms, 1e-9))), 4)
+
+
+def _assert_table_replica_is_sample_codes(cfg, sig, n_codes):
+    k = int(cfg.acq_satellite_list[0])
+    code_fn, _ = tpcps.fine_setup(sig, k, n_codes)
+    prn = 0 if sig.fdma else k
+    offset = 0.0
+    if sig.pilot_phase_hypotheses > 1 and code_fn is sig.pilot_code:
+        offset = float(37 * sig.code_length_chips)     # a long-pilot period
+    n = n_codes * cfg.samples_per_code
+    want = t_sample_code(code_fn(prn), sig.elements_per_chip,
+                         sig.chip_rate_hz, cfg.sampling_freq, n,
+                         code_phase_chips=offset)
+    table = tpcps._fine_table(code_fn, prn, "cpu")
+    got = tpcps.table_replica(table, len(table), offset,
+                              epc=sig.elements_per_chip,
+                              ratio=sig.chip_rate_hz / cfg.sampling_freq,
+                              n_samples=n)
+    assert got.dtype == torch.int8
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", sorted(T_REGISTRY))
+def test_table_replica_is_sample_codes(name):
+    """Every preset's fine set-up at its own rate and fine length, on
+    ``fine_setup``'s code for its first PRN (GLONASS: the FDMA channel's
+    shared code(0); gal_e1c: the BOC pilot table at 2 elements a chip;
+    gps_l2c: the CL pilot 37 periods in): the replica drawn from the
+    device table equals ``sample_code``'s element for element over the
+    whole fine segment."""
+    cfg, sig = t_get_config(name), t_get_signal(name)
+    _assert_table_replica_is_sample_codes(cfg, sig, _fine_n_codes(cfg, sig))
+
+
+def test_table_replica_at_a_resampled_rate():
+    """gps_l1ca decimated by the bandpass resampler (18 to 2.586 Msps):
+    the same element for element."""
+    cfg = t_get_config("gps_l1ca", resampling_flag=True)
+    _, cfg, info = maybe_resample(np.zeros(40_000, np.complex64), cfg)
+    assert info.enabled and cfg.sampling_freq == 2.586e6
+    sig = t_get_signal("gps_l1ca")
+    _assert_table_replica_is_sample_codes(cfg, sig, _fine_n_codes(cfg, sig))
+
+
+# (preset, overrides, fine code periods, fine bins, PRNs): bit-edge windows,
+# the CS100 pilot secondary, the CL pilot at long-pilot offsets, envelope
+FINE_CASES = {
+    "gps_l1ca": (dict(sampling_freq=2.048e6, if_freq=7000.0), 40, 21,
+                 (3, 11, 27)),
+    "gal_e5a": (dict(sampling_freq=12e6, if_freq=7000.0), 10, 21,
+                (5, 19, 30)),
+    "gps_l2c": (dict(sampling_freq=2.048e6, if_freq=7000.0), 2, 3,
+                (7, 9)),
+    "bds_b1c": (dict(sampling_freq=4.096e6, if_freq=7000.0), 4, 3,
+                (20, 33)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FINE_CASES))
+def test_table_fine_search_equals_the_replica_fine_kernel(name):
+    """On one random segment holding each PRN's replica on its own carrier
+    bin, the table-based plain search (``fine_search`` on CPU tensors, no
+    launch) and the hypotheses after it give the powers of the JAX
+    package's ``_fine_kernel`` on the host-sampled replica to 1e-6 of the
+    largest, and the same bin: the same f32 operations, but XLA's cos/sin
+    and sums against PyTorch's."""
+    over, n_codes, n_fine, prns = FINE_CASES[name]
+    cfg, sig = t_get_config(name, **over), t_get_signal(name)
+    fs, spc = cfg.sampling_freq, cfg.samples_per_code
+    ts = np.float32(1.0 / fs)
+    n_seg = n_codes * spc
+    rng = np.random.default_rng(len(name))
+    x = (rng.normal(size=(n_codes + 3) * spc)
+         + 1j * rng.normal(size=(n_codes + 3) * spc))
+    cps = [int(c) for c in rng.integers(0, 3 * spc, len(prns))]
+    freqs = (cfg.if_freq + 40.0 * rng.normal(size=(len(prns), 1))
+             - 25.0 * np.arange(n_fine)[None, :]).astype(np.float32)
+    truth = rng.integers(0, n_fine, len(prns))
+    rows, offsets, reps, hyps = [], [], [], []
+    for j, prn in enumerate(prns):
+        code_fn, H = tpcps.fine_setup(sig, prn, n_codes)
+        offset = (float((12 + j) * sig.code_length_chips)
+                  if sig.pilot_phase_hypotheses > 1 else 0.0)
+        rep = t_sample_code(code_fn(prn), sig.elements_per_chip,
+                            sig.chip_rate_hz, fs, n_seg,
+                            code_phase_chips=offset).astype(np.float32)
+        # a secondary code's hypotheses are signs: the segment carries one
+        signs = (H[j % len(H)] if H is not None and np.all(np.abs(H) == 1)
+                 else np.ones(n_codes))
+        t = np.arange(n_seg) / fs
+        x[cps[j]:cps[j] + n_seg] += 0.5 * rep * np.repeat(signs, spc) * np.exp(
+            2j * np.pi * freqs[j, truth[j]] * t)
+        rows.append(tpcps._fine_table(code_fn, prn, "cpu"))
+        offsets.append(offset)
+        reps.append(rep)
+        hyps.append(np.ones((1, n_codes), np.float32) if H is None else H)
+    envelope = name == "bds_b1c"
+    sig_r = torch.from_numpy(x.real.astype(np.float32))
+    sig_i = torch.from_numpy(x.imag.astype(np.float32))
+    hyp = torch.from_numpy(np.stack(hyps))
+    before = dict(t_LAUNCHES)
+    sr, si = tpcps.fine_search(
+        sig_r, sig_i, cps, torch.nn.utils.rnn.pad_sequence(
+            rows, batch_first=True), [len(r) for r in rows], offsets,
+        float(2.0 * np.pi * ts) * torch.from_numpy(freqs),
+        epc=sig.elements_per_chip, ratio=sig.chip_rate_hz / fs,
+        n_codes=n_codes, spc=spc)
+    assert t_LAUNCHES == before                   # no kernel on the CPU
+    assert sr.shape == si.shape == (len(prns), n_fine, n_codes)
+    got = tpcps._fine_powers(sr, si, hyp, envelope).numpy()
+    want = np.stack([np.asarray(jpcps._fine_kernel(
+        jnp.asarray(x.real[cp:cp + n_seg], jnp.float32),
+        jnp.asarray(x.imag[cp:cp + n_seg], jnp.float32), jnp.asarray(rep),
+        jnp.asarray(f), jnp.asarray(hyps[j]), ts, envelope=envelope))
+        for j, (cp, rep, f) in enumerate(zip(cps, reps, freqs))])
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    assert got.argmax(axis=1).tolist() == want.argmax(axis=1).tolist() \
+        == truth.tolist()
+
+
+def test_fine_search_refuses_what_it_cannot_take():
+    """dtype, device, a table shorter than its code, a segment past the
+    record, rows that disagree in number; the plain version refuses the
+    same.  (The kernel's own limit, a segment past its f32 sample index,
+    is held in the card tests.)"""
+    sig = torch.zeros(1000)
+    tables = torch.ones((2, 50), dtype=torch.int8)
+    omega = torch.zeros((2, 3))
+    good = dict(sig_r=sig, sig_i=sig, cps=[0, 500], tables=tables,
+                lengths=[50, 40], offsets=[0.0, 0.0], omega=omega)
+    kw = dict(epc=1, ratio=0.5, n_codes=4, spc=100)
+    assert tpcps.fine_search(**good, **kw)[0].shape == (2, 3, 4)
+    bad = [dict(sig_r=sig.double()), dict(tables=tables.float()),
+           dict(omega=omega.double()), dict(omega=omega.to("meta")),
+           dict(lengths=[50, 51]), dict(lengths=[0, 10]),
+           dict(cps=[0, 601]), dict(cps=[-1, 0]), dict(offsets=[0.0]),
+           dict(sig_i=torch.zeros(999))]
+    for b in bad:
+        for fn in (tpcps.fine_search, tpcps.fine_search_plain):
+            with pytest.raises(ValueError):
+                fn(**dict(good, **b), **kw)

@@ -1458,3 +1458,183 @@ def test_spans_share_the_card_clock_and_shadow_as_annotations(cuda):
     assert a1 <= t0
     assert all(ev.is_user_annotation() for ev in shadows), \
         sorted({ev.name() for ev in shadows if not ev.is_user_annotation()})
+
+
+# ---- acquisition's fine search (ops/csrc/fine.cu) --------------------------
+
+FINE_PRESETS = ("bds_b1c", "bds_b1i", "bds_b2a", "bds_b3i", "gal_e1c",
+                "gal_e5a", "gal_e5b", "glo_l1", "glo_l2", "gps_l1ca",
+                "gps_l2c", "gps_l5c")
+# every preset as shipped, and gps_l1ca at a 2.5 Hz fine step: 201 bins,
+# two of the kernel's bin tiles
+FINE_SHAPES = [(name, {}) for name in FINE_PRESETS] + [
+    ("gps_l1ca", dict(fine_search_step=2.5))]
+
+
+def _fine_case(name, n_rows, seed=21, **over):
+    """``fine_search``'s arguments at the preset's own rate and fine shape
+    (n_fine bins, n_codes periods of spc samples, its fine set-up's code
+    tables for ``n_rows`` PRNs, gps_l2c's CL pilot at long-pilot offsets,
+    GLONASS's channels on their MHz carriers), on the card: a record of
+    int8-sized values holding each row's replica, with its secondary
+    signs, on a carrier bin of its own.  Returns (args, kw, hyp, envelope,
+    true bins)."""
+    from cusdr_tpu_torch.acquisition import pcps
+    from cusdr_tpu_torch.signals.defs import sample_code
+    cfg, sig = get_config(name, **over), get_signal(name)
+    fs, spc = cfg.sampling_freq, cfg.samples_per_code
+    n_codes = cfg.fine_n_codes or max(int(round(40.0 / sig.code_period_ms)),
+                                      4)
+    n_fine = int(round(cfg.acq_search_step / cfg.fine_search_step)) + 1
+    n_seg = n_codes * spc
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-40, 41, n_seg + 2 * spc)
+         + 1j * rng.integers(-40, 41, n_seg + 2 * spc))
+    prns = [int(p) for p in cfg.acq_satellite_list[:n_rows]]
+    cps = [int(c) for c in rng.integers(0, 2 * spc, n_rows)]
+    offs = (np.asarray(prns) * sig.fdma_spacing_hz if sig.fdma
+            else np.zeros(n_rows))
+    freqs = (cfg.if_freq + offs[:, None] + rng.uniform(-3000, 3000,
+                                                       (n_rows, 1))
+             + cfg.acq_search_step / 2
+             - cfg.fine_search_step * np.arange(n_fine)[None, :]
+             ).astype(np.float32)
+    truth = rng.integers(0, n_fine, n_rows)
+    tables, offsets, hyps, envelope = [], [], [], False
+    t = np.arange(n_seg) / fs
+    for j, prn in enumerate(prns):
+        code_fn, H = pcps.fine_setup(sig, prn, n_codes)
+        envelope = H is None
+        code_prn = 0 if sig.fdma else prn
+        offset = (float((30 + j) * sig.code_length_chips)
+                  if sig.pilot_phase_hypotheses > 1 else 0.0)
+        rep = sample_code(code_fn(code_prn), sig.elements_per_chip,
+                          sig.chip_rate_hz, fs, n_seg,
+                          code_phase_chips=offset).astype(np.float32)
+        signs = (H[j % len(H)] if H is not None and np.all(np.abs(H) == 1)
+                 else np.ones(n_codes))
+        x[cps[j]:cps[j] + n_seg] += 8.0 * rep * np.repeat(signs, spc) \
+            * np.exp(2j * np.pi * float(freqs[j, truth[j]]) * t)
+        tables.append(torch.from_numpy(code_fn(code_prn).astype(np.int8)))
+        offsets.append(offset)
+        hyps.append(np.ones((1, n_codes), np.float32) if envelope else H)
+    ts = np.float32(1.0 / fs)
+    args = (torch.from_numpy(x.real.astype(np.float32)).cuda(),
+            torch.from_numpy(x.imag.astype(np.float32)).cuda(), cps,
+            torch.nn.utils.rnn.pad_sequence(tables, batch_first=True).cuda(),
+            [len(tb) for tb in tables], offsets,
+            float(2.0 * np.pi * ts) * torch.from_numpy(freqs).cuda())
+    kw = dict(epc=sig.elements_per_chip, ratio=sig.chip_rate_hz / fs,
+              n_codes=n_codes, spc=spc)
+    return (args, kw, torch.from_numpy(np.stack(hyps)).cuda(), envelope,
+            truth)
+
+
+@pytest.mark.parametrize("name,over", FINE_SHAPES)
+def test_fine_kernel_matches_plain_version(cuda, name, over):
+    """Every preset's fine search at its own shape (12 rows at gps_l1ca and
+    gal_e5a, whose cells run it; 3 elsewhere), and 201 bins in two bin
+    tiles: the kernel's sums against the plain version's on the card
+    within 1e-4·(max|plain| + 1) (each period's 12 000-180 000 products
+    added in another order: per thread, a warp butterfly, warps, tiles,
+    and an FMA where the plain version rounds the product), the same bin
+    of largest power in every row (at the shipped steps the scene's), one
+    launch, and a second launch equal to the bit."""
+    from cusdr_tpu_torch.acquisition import pcps
+    args, kw, hyp, envelope, truth = _fine_case(
+        name, 12 if name in ("gps_l1ca", "gal_e5a") and not over else 3,
+        **over)
+    before = dict(LAUNCHES)
+    sr, si = pcps.fine_search(*args, **kw)
+    sr2, si2 = pcps.fine_search(*args, **kw)
+    torch.cuda.synchronize()
+    before["fine_search"] += 2
+    assert LAUNCHES == before
+    assert torch.equal(sr, sr2) and torch.equal(si, si2)
+    pr, pi = pcps.fine_search_plain(*args, **kw)
+    for got, want in ((sr, pr), (si, pi)):
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        assert np.abs(got - want).max() <= RTOL_SUM * (np.abs(want).max()
+                                                       + 1.0)
+    power = pcps._fine_powers(sr, si, hyp, envelope).cpu().numpy()
+    plain = pcps._fine_powers(pr, pi, hyp, envelope).cpu().numpy()
+    assert power.argmax(1).tolist() == plain.argmax(1).tolist()
+    if not over:          # 2.5 Hz bins lie within the noise of their peak
+        assert power.argmax(1).tolist() == truth.tolist()
+
+
+def test_fine_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    """A wrong dtype, a tensor on the CPU beside the card's, a table
+    shorter than its code, a segment past the record, non-contiguous
+    samples, a segment past the kernel's f32 sample index (2^24, read from
+    the library): ValueError, and nothing launched."""
+    from cusdr_tpu_torch.acquisition import pcps
+    args, kw, _, _, _ = _fine_case("gps_l1ca", 2)
+    sig_r, sig_i, cps, tables, lengths, offsets, omega = args
+    strided = torch.stack([sig_r, sig_i], dim=1)
+    bad = [(sig_r.double(), sig_i, cps, tables, lengths, offsets, omega),
+           (sig_r, sig_i, cps, tables.float(), lengths, offsets, omega),
+           (sig_r, sig_i, cps, tables.cpu(), lengths, offsets, omega),
+           (sig_r, sig_i, cps, tables, lengths, offsets, omega.cpu()),
+           (sig_r, sig_i, cps, tables, [1024, 1023], offsets, omega),
+           (sig_r, sig_i, [0, sig_r.numel() - kw["n_codes"] * kw["spc"] + 1],
+            tables, lengths, offsets, omega),
+           (strided[:, 0], strided[:, 1], cps, tables, lengths, offsets,
+            omega)]
+    before = dict(LAUNCHES)
+    for a in bad:
+        with pytest.raises(ValueError):
+            pcps.fine_search(*a, **kw)
+    long = torch.zeros((1 << 24) + 2, device=sig_r.device)
+    with pytest.raises(ValueError, match="f32 sample index"):
+        pcps.fine_search(long, long, [0, 0], tables, lengths, offsets, omega,
+                         **dict(kw, n_codes=2, spc=(1 << 23) + 1))
+    assert LAUNCHES == before
+
+
+def test_acquisition_launches_the_fine_kernel_once(cuda):
+    """``acquire`` on the card (gps_l1ca at 2.048 Msps, four SVs): one
+    fine-search launch for all its detected PRNs; detections, code phases
+    and carriers equal the CPU's."""
+    from cusdr_tpu_torch.acquisition.pcps import acquire
+    cfg, sig, iq, _ = _sv_scene(2.048e6, 4, 120, cn0_dbhz=48.0)
+    cfg = cfg.replace(acq_satellite_list=cfg.acq_satellite_list[:8])
+    x = iq[0::2].astype(np.float32) + 1j * iq[1::2].astype(np.float32)
+    host = acquire(cfg, sig, x, "cpu")
+    before = dict(LAUNCHES)
+    card = acquire(cfg, sig, x, cuda)
+    before["fine_search"] += 1
+    assert LAUNCHES == before
+    assert host.detected.sum() == 4
+    for name in ("detected", "code_phase", "coarse_freq", "carr_freq"):
+        assert np.array_equal(getattr(card, name), getattr(host, name)), name
+
+
+def test_receiver_on_a_gal_e5a_scene_matches_cpu(cuda):
+    """``Receiver.run`` on a 0.4 s gal_e5a scene (three SVs at 50 dB-Hz,
+    12.288 Msps, the CS100 fine stage of 100 periods over 101 bins) on the
+    card and on the CPU: the same detections, code phases and fine
+    carriers, the same channels, and tracked carriers within 0.05 Hz."""
+    from cusdr_tpu_torch.io.synth import (SynthSV, quantize_iq_int8,
+                                          synthesize_if)
+    from cusdr_tpu_torch.receiver import Receiver
+    cfg = get_config("gal_e5a", sampling_freq=12.288e6, if_freq=7000.0,
+                     superblock_ms=100, acq_satellite_list=(4, 8, 11, 19))
+    sig = get_signal("gal_e5a")
+    svs = [SynthSV(prn=4, code_phase=5233.0, doppler_hz=1100.0,
+                   cn0_dbhz=50.0),
+           SynthSV(prn=11, code_phase=901.0, doppler_hz=-2210.0,
+                   cn0_dbhz=50.0),
+           SynthSV(prn=19, code_phase=10412.0, doppler_hz=620.0,
+                   cn0_dbhz=50.0)]
+    iq = quantize_iq_int8(synthesize_if(cfg, sig, svs, num_ms=400, seed=6))
+    host = Receiver(cfg, "cpu").run(iq)
+    card = Receiver(cfg, cuda).run(iq)
+    assert host.acq.detected.sum() == 3
+    for name in ("detected", "code_phase", "carr_freq"):
+        assert np.array_equal(getattr(card.acq, name),
+                              getattr(host.acq, name)), name
+    assert card.channels == host.channels and len(host.channels) == 3
+    tail = slice(-100, None)
+    assert np.abs(np.asarray(card.track.carr_freq)[:, tail]
+                  - np.asarray(host.track.carr_freq)[:, tail]).max() <= 0.05

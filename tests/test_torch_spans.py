@@ -17,7 +17,8 @@ ms, run by ``Receiver.run`` once with no profiler and once under
 - the results (acquisition, every ``TrackResults`` field, fixes) are equal
   element for element with tracing on and off;
 - under the profiler ``timings`` also carries the lock gate's count of
-  dropped channels, ``trk_lock_drops`` (0: every SV holds lock).
+  dropped channels, ``trk_lock_drops`` (0: every SV holds lock), and the
+  fine stage's count of the detected PRNs it searched, ``acq_fine_rows``.
 
 ``nav.fec``: navigation's decode of an F/NAV prompt stream (pages with
 their sync words, the secondary code on every symbol) opens it inside
@@ -148,8 +149,9 @@ def test_totals_reach_timings_and_sum_within_their_stage(runs):
     _, on, _ = runs
     t = on.timings
     want = {f"{s}_s" for s in STAGES} | {_key(n) for n in REACHED}
-    assert set(t) == want | {"trk_lock_drops"}
+    assert set(t) == want | {"trk_lock_drops", "acq_fine_rows"}
     assert t.pop("trk_lock_drops") == 0
+    assert t.pop("acq_fine_rows") == on.acq.detected.sum() >= 3
     assert all(v >= 0.0 for v in t.values())
     for stage, names in SUB_SPANS.items():
         assert sum(t.get(_key(n), 0.0) for n in names) <= t[f"{stage}_s"]
