@@ -31,18 +31,6 @@ Phases, each of which fails the run when it fails:
    launches (a CUDA graph) beside the launch floor (a one-element fill),
    ``correlate_windows`` (one block per row) on the same windows and the
    bound, and its cos/sin held to the plain version's sample by sample;
-3d. the per-epoch profile of the eager loop ``track_superblock_epochs``
-   (launches, wall, device and correlator time, idle share) and the
-   per-superblock profile of ``track_superblock`` on the superblock kernel
-   (staging into a fresh and into a reused page-locked buffer, the
-   blocking and the non-blocking copy to the card, launch, drain, and on
-   the main path's bank ``engine.track``'s steady-state host milliseconds
-   per superblock and the superblock kernel's share of the trace's device
-   span over 16 superblocks) from
-   cusdr_tpu_torch/runtime/profiling.py, for the 12-row bank of each path
-   and the 96-row time-parallel bank, and (in a process of its own, as for
-   the first bank) on the staged superblock kernel for the 96-row per-block
-   bank;
 3e. the superblock kernel (one launch tracks a bank through every epoch of
    a superblock) against its plain version, the eager epoch loop
    ``track_superblock_epochs``, on the card, on the records of the scenes
@@ -206,15 +194,14 @@ Phases, each of which fails the run when it fails:
    pipelined, pipelined, sync), every field of every run equal to the
    first's, element for element; each run's tracking seconds, real-time
    factor, host milliseconds per superblock (also less the seconds of the
-   ``trk.results`` span: the merge and the TrackResults built at the end)
-   and the card's busy share (``torch.profiler``'s device time over the
-   trace's device span), each run traced, its superblocks and
-   ``trk.results`` read from the span totals of its "tracking" stage.
+   ``trk.results`` span: the merge and the TrackResults built at the end),
+   each run under a ``torch.profiler`` session of CPU activity, its
+   superblocks and ``trk.results`` read from the span totals of its
+   "tracking" stage.
 
 The scenes of phases 3e-19 are made in worker processes, one each, while
 the kernel checks of phases 1-3c and 3g run, and are all finished before the
-host-bound measurements (the 500-epoch loops, phase 3d) and phase 4
-start.
+host-bound measurements (the 500-epoch loops) and phase 4 start.
 
 Prints a JSON line with each kernel's numbers (launches on its path, and
 for the superblock kernels also on the other paths, phase 17's mesh,
@@ -969,37 +956,24 @@ def _union_length(starts, lengths):
                             0).sum())
 
 
-def superblock_bound(n_pilots, interp, blk, n_rows, n_epochs, table_bytes,
-                     abs_sample, blksize, sample_bytes=2):
+def superblock_bound(n_pilots, interp, blk, n_rows, n_epochs, abs_sample,
+                     blksize, sample_bytes=2):
     """The least time the card could take for one superblock launch on this
     run's data (``abs_sample``, ``blksize``: the [E, C] outputs, the window
-    starts in the record and their lengths, 0 where a row was frozen).
-
-    Bytes, each input read once and each output written once:
-    ``sample_bytes`` (2 for int8 I/Q, 4 for int16) per record sample that
-    any valid window covers (the rows of a bank read nearly the
-    same stretch of one record, which is one input), the replica tables
-    once (``table_bytes``: they are read again every epoch, but are one
-    input), the state in and out (12 f64, an int64, an int32 and a flag per
-    row, and the int64 record end) and 96 per row and epoch of outputs (12
-    f32, 4 f64, 2 int64).  Operations per valid sample of every row as
-    ``bound`` counts them for the per-epoch kernel, 4 per carrier factor
-    and about 150 for the geometry and the loop closing per valid epoch.
-    Returns (milliseconds, "bytes" or "operations", bytes, operations)."""
+    starts in the record and their lengths, 0 where a row was frozen), as
+    benchmark/roofline.py counts it, the record read once over the union
+    of the valid windows (the rows of a bank read nearly the same stretch
+    of one record, which is one input).  Returns (milliseconds, "bytes" or
+    "operations", bytes, operations)."""
+    from benchmark.roofline import bound_s, superblock_work
     valid = blksize > 0
-    n_valid = int(blksize.sum())
-    n_valid_epochs = int(valid.sum())
-    banks = 1 + n_pilots
-    n_bytes = (sample_bytes * _union_length(abs_sample[valid],
-                                            blksize[valid])
-               + table_bytes + n_rows * (2 * 109 + 8)
-               + n_epochs * n_rows * 96)
-    ops = (n_valid * (12 + banks * (12 + (9 if interp else 0)))
-           + n_valid_epochs * (4 * ((blk + 127) // 128 + 128) + 150))
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", n_bytes, ops)
+    n_bytes, ops = superblock_work(
+        rows=n_rows, epochs=n_epochs, valid_epochs=int(valid.sum()),
+        valid_samples=int(blksize.sum()),
+        span=_union_length(abs_sample[valid], blksize[valid]), blk=blk,
+        pilots=n_pilots, interp=interp, sample_bytes=sample_bytes)
+    seconds, by = bound_s(n_bytes, ops)
+    return seconds * 1e3, by, n_bytes, ops
 
 
 def _track_arrays(track):
@@ -1124,8 +1098,6 @@ def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
                                                    channels, dops)
         tables = torch.from_numpy(ctabs).to(dev)
         ptables = None if ptabs is None else torch.from_numpy(ptabs).to(dev)
-        table_bytes = tables.numel() + (0 if ptables is None
-                                        else ptables.numel())
         args = (rec, 0, tables, ptables, state, params, n_epochs, end)
 
         def eager():
@@ -1223,7 +1195,7 @@ def superblock_check(name, label, cfg, sig, iq, channels, n_epochs,
                     for f in ("i_e", "q_e", "i_p", "q_p", "i_l", "q_l"))
         e1, k1, k2, e2 = (_timed(f, 2) for f in (eager, kern, kern, eager))
         b_ms, b_by, n_bytes, ops = superblock_bound(
-            n_pilots, interp, params.blk, n_rows, n_epochs, table_bytes,
+            n_pilots, interp, params.blk, n_rows, n_epochs,
             want[1].abs_sample.cpu().numpy(), blksize,
             sample_bytes=2 * rec.element_size())
         row.update(tol=TRACK_RTOL * (scale + 1.0), wrapper_ms=(k1 + k2) / 2,
@@ -1763,63 +1735,6 @@ def pvt_time_parallel(card: str, made):
         raise AssertionError("[pvt-tp] not an exactly stitched 8-block run")
     _check_fixes("pvt-tp", card, scn, res, "test_e2e_timeparallel", 60,
                  15.0, 50.0)
-
-
-def profiles(card: str):
-    """Phase 3d: the per-epoch profile of the eager loop and the
-    per-superblock profile of the superblock kernels for each path's bank
-    (cusdr_tpu_torch/runtime/profiling.py)."""
-    from cusdr_tpu_torch import get_config
-    from cusdr_tpu_torch.runtime.profiling import (
-        format_profile, format_superblock_profile, profile_epochs,
-        profile_superblock)
-    out = []
-    # a superblock as ``track`` cuts it (1000 ms), and one pass of the
-    # 96-row flat bank over phase 9's record; ``track`` pipelined on the
-    # main path's bank (and on it again in a process of its own, below)
-    for cfg, n_blocks, n_epochs, n_sb in (
-            (get_config("gps_l1ca"), 1, 1000, 8),
-            (get_config("gps_l1ca"), TIME_BLOCKS, 499, 0),
-            (get_config("gal_e5a"), 1, 1000, 0),
-            (get_config("bds_b1c", **B1C_WB), 1, 100, 0)):
-        p = profile_superblock(cfg, "cuda", n_epochs, n_blocks=n_blocks,
-                               n_superblocks=n_sb)
-        log(f"[profile] on {card}: {format_superblock_profile(p)}")
-        out.append(p)
-    # the first bank again in a process of its own: in this one, some
-    # minutes old, a trace of one short launch comes back empty
-    fresh = subprocess.run(
-        [sys.executable, "-m", "cusdr_tpu_torch.runtime.profiling",
-         "--signal", "gps_l1ca", "--epochs", "1000"], cwd=ROOT,
-        capture_output=True, text=True, timeout=300)
-    if fresh.returncode != 0:
-        raise AssertionError(f"[profile] the profiling tool failed:\n"
-                             f"{fresh.stdout}\n{fresh.stderr}")
-    log(f"[profile] on {card}, in a process of its own: "
-        f"{fresh.stdout.strip().splitlines()[-1]}")
-    # and the staged superblock kernel on the per-block path's 96-row bank
-    # (a pass of phase 9's per-block run)
-    fresh = subprocess.run(
-        [sys.executable, "-m", "cusdr_tpu_torch.runtime.profiling",
-         "--signal", "gps_l1ca", "--blocks", str(TIME_BLOCKS), "--epochs",
-         "250", "--staged"], cwd=ROOT, capture_output=True, text=True,
-        timeout=300)
-    if fresh.returncode != 0:
-        raise AssertionError(f"[profile] the profiling tool failed:\n"
-                             f"{fresh.stdout}\n{fresh.stderr}")
-    log(f"[profile] on {card}, in a process of its own: "
-        f"{fresh.stdout.strip().splitlines()[-1]}")
-    for cfg, n_blocks, fetch in (
-            (get_config("gps_l1ca"), 1, True),
-            (get_config("gps_l1ca"), TIME_BLOCKS, True),
-            (get_config("gps_l1ca"), TIME_BLOCKS, False),
-            (get_config("gal_e5a"), 1, True),
-            (get_config("bds_b1c", **B1C_WB), 1, True)):
-        p = profile_epochs(cfg, "cuda", n_blocks=n_blocks, n_epochs=20,
-                           fetch_in_kernel=fetch)
-        log(f"[profile] on {card}: {format_profile(p)}")
-        out.append(p)
-    return out
 
 
 def perf_tool(card: str):
@@ -2490,8 +2405,6 @@ def gather_path(card: str, made):
     from cusdr_tpu_torch.ops.correlator import LAUNCHES, reset_launches
     from cusdr_tpu_torch.parallel.timeblocks import track_time_parallel
     from cusdr_tpu_torch.receiver import Receiver
-    from cusdr_tpu_torch.runtime.profiling import (format_profile,
-                                                   profile_epochs)
     from cusdr_tpu_torch.signals.defs import get_signal
     svs, iq, made_s = made
     sig = get_signal("bds_b1c")
@@ -2521,11 +2434,6 @@ def gather_path(card: str, made):
             f"(data, pilot) {[round(float(x.min()), 1) for x in snr]}, carrier error max "
             f"{abs(fr_err).max():.2f} Hz")
         shown = _gather_card_vs_cpu(tag, cfg, iq, res.channels)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            prof = profile_epochs(cfg, "cuda", n_epochs=20)
-        log(f"[{tag}] gather step profile (profile_epochs, random "
-            f"samples) on {card}: {format_profile(prof)}")
         tb = cfg.replace(time_blocks=2)
         n_tp = n_ep // 2 * 2
         torch.cuda.synchronize()
@@ -2548,7 +2456,7 @@ def gather_path(card: str, made):
             f"block-tail prompt SNR {worst:.1f}")
         out[mode] = dict(realtime=rt, tracking_s=res.timings["tracking_s"],
                          epochs=n_ep, time_blocks_realtime=tp_rt,
-                         card_vs_cpu=shown, profile=prof)
+                         card_vs_cpu=shown)
     return out
 
 
@@ -3652,29 +3560,21 @@ def sync_track(cfg, sig, samples_iq, channels, device, n_epochs=None):
 
 def _profiled_track(loop):
     """One run of ``loop`` (``track`` or ``sync_track`` on the card) in
-    the "tracking" stage of a ``StageTimer`` under ``torch.profiler``
-    (``profiling._device_profile``).  Returns (its result, dict of
-    ``seconds`` (the stage's host seconds), ``results_s`` (the
-    ``trk.results`` span's: the merge and ``TrackResults``),
-    ``superblocks`` (``trk.launch``'s calls), ``device_ms`` (the card's
-    kernels and copies in the trace), ``span_ms`` (the trace's device span,
-    its first device event to its last) and ``busy_share``)."""
-    from cusdr_tpu_torch.runtime.profiling import StageTimer, _device_profile
+    the "tracking" stage of a ``StageTimer`` under a ``torch.profiler``
+    session of CPU activity, so that the spans add to the stage.  Returns
+    (its result, dict of ``seconds`` (the stage's host seconds),
+    ``results_s`` (the ``trk.results`` span's: the merge and
+    ``TrackResults``) and ``superblocks`` (``trk.launch``'s calls))."""
+    from torch.profiler import ProfilerActivity, profile
+    from cusdr_tpu_torch.runtime.profiling import StageTimer
     timer = StageTimer(device="cuda")
-    kept = {}
-
-    def run():
+    with profile(activities=[ProfilerActivity.CPU]):
         with timer.stage("tracking"):
-            kept["res"] = loop()
-
-    _, device_ms, _, span_ms = _device_profile(run, ())
-    if device_ms is None or not span_ms:     # the trace held no device time
-        device_ms = span_ms = float("nan")
+            res = loop()
     rec = timer.stages["tracking"]
-    return kept["res"], dict(
-        seconds=rec.seconds, results_s=rec.spans["trk.results"].seconds,
-        superblocks=rec.spans["trk.launch"].calls, device_ms=device_ms,
-        span_ms=span_ms, busy_share=device_ms / span_ms)
+    return res, dict(seconds=rec.seconds,
+                     results_s=rec.spans["trk.results"].seconds,
+                     superblocks=rec.spans["trk.launch"].calls)
 
 
 def pipeline_path(card: str, made, seq_res, full):
@@ -3685,8 +3585,8 @@ def pipeline_path(card: str, made, seq_res, full):
     two slots reused 200 times each): the loops run in turns
     (``PIPE_TURNS``), every field of every run equal, element for element,
     to the first synchronous run's.  Prints each run's tracking seconds,
-    real-time factor, host milliseconds per superblock and the card's busy
-    share; returns {case: {loop: [per-turn numbers]}}."""
+    real-time factor and host milliseconds per superblock; returns {case:
+    {loop: [per-turn numbers]}}."""
     import numpy as np
     from cusdr_tpu_torch import get_config
     from cusdr_tpu_torch.receiver import Receiver
@@ -3750,11 +3650,7 @@ def pipeline_path(card: str, made, seq_res, full):
             f"{fmt('sync', 'results_s', '.3f')}, pipelined "
             f"{fmt('pipelined', 'results_s', '.3f')} s) sync "
             f"{fmt('sync', 'loop_ms_per_superblock', '.3f')}, pipelined "
-            f"{fmt('pipelined', 'loop_ms_per_superblock', '.3f')}; card "
-            f"busy sync {fmt('sync', 'busy_share', '.1%')}, pipelined "
-            f"{fmt('pipelined', 'busy_share', '.1%')} (device time "
-            f"{fmt('pipelined', 'device_ms', '.1f')} ms of "
-            f"{fmt('pipelined', 'span_ms', '.1f')})")
+            f"{fmt('pipelined', 'loop_ms_per_superblock', '.3f')}")
     log(f"[pipeline] phase 21 in {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -3895,7 +3791,6 @@ def main() -> int:
     # host-bound measurements run with no scene work beside them
     tool = perf_tool(smi)
     launches = {r["name"]: r["loop_launches"] for r in tool}
-    profiled = profiles(smi)
     checks.update(superblock_checks(scenes))
     checks.update(superblock_checks(scenes, staged=True))
     from cusdr_tpu_torch import get_config
@@ -3985,8 +3880,7 @@ def main() -> int:
             # phase 14: the bank's launches in track_multi and run_multi
             entry["launches_track_multi"] = multi_launches[0][entry["name"]]
             entry["launches_run_multi"] = multi_launches[1][entry["name"]]
-    print(json.dumps({"perf_correlator": tool, "profiles": profiled,
-                      "gather_path": gather,
+    print(json.dumps({"perf_correlator": tool, "gather_path": gather,
                       "multi_stream_spans_ms": multi_launches[2],
                       "pipeline": pipeline}))
     print(json.dumps({"kernels": kernels}))

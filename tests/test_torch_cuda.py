@@ -64,7 +64,6 @@ from cusdr_tpu_torch.ops import correlator as corr
 from cusdr_tpu_torch.ops.correlator import (LAUNCHES, correlate_bank,
                                             correlate_bank_plain)
 from cusdr_tpu_torch.parallel import timeblocks
-from cusdr_tpu_torch.runtime.profiling import make_bank
 from cusdr_tpu_torch.tracking import engine
 
 pytestmark = pytest.mark.cuda
@@ -101,6 +100,48 @@ def _bank_args(dev, seed=11, n_ch=12, blk=18008, k=9, n_samp=4 * 18000):
             t(rng.uniform(0, 1, n_ch), f32), t(rng.uniform(0, 1, n_ch), f32),
             t(np.mod(inc * 128, 1.0), f32), t(np.mod(inc, 1.0), f32),
             t(blk - rng.integers(0, 9, n_ch), i64))
+
+
+def _bank_channels(cfg, sig):
+    """``make_bank``'s channels: ``cfg.num_channels`` of the preset's PRNs
+    spread over the Doppler band (an FDMA signal's on their frequency
+    channels' carriers)."""
+    n_ch = cfg.num_channels
+    prns = list(cfg.acq_satellite_list)[:n_ch]
+    fdma = sig.fdma_spacing_hz if sig.fdma else 0.0
+    return [(prn, cfg.if_freq + fdma * prn + 500.0 * (j - n_ch // 2),
+             149 * j) for j, prn in enumerate(prns)]
+
+
+def make_bank(cfg, device, n_blocks: int = 1, n_epochs: int = 20,
+              seed: int = 0):
+    """A channel bank at ``cfg``'s width on random int8 samples:
+    ``cfg.num_channels`` channels spread over the Doppler band (an FDMA
+    signal's on their frequency channels' carriers), as ``n_blocks`` time
+    blocks of ``n_epochs`` (B·C rows sharing C table rows).  Returns (iq,
+    tables, ptables, state, params)."""
+    sig = get_signal(cfg.signal)
+    params = engine.make_track_params(cfg, sig)
+    n_ch = cfg.num_channels
+    spc = cfg.samples_per_code
+    rng = np.random.default_rng(seed)
+    n_samp = (n_blocks * n_epochs + 6) * spc
+    iq = torch.from_numpy(
+        rng.integers(-16, 17, 2 * n_samp).astype(np.int8)).to(device)
+    channels = _bank_channels(cfg, sig)
+    dops = engine.code_dopplers(cfg, sig, channels)
+    ctabs, ptabs = engine.build_tables(cfg, sig, params, channels, dops)
+    tables = torch.from_numpy(ctabs).to(device)
+    ptables = None if ptabs is None else torch.from_numpy(ptabs).to(device)
+    base = engine.init_channel_state(channels, sig.chip_rate_hz, device,
+                                     dopplers=dops,
+                                     carrier_freq_hz=sig.carrier_freq_hz)
+    # block b of a row starts b·n_epochs code periods later
+    shift = (torch.arange(n_blocks, device=device) * n_epochs * spc)
+    state = engine.ChannelState(*(x.repeat(n_blocks) for x in base))
+    state = state._replace(
+        abs_sample=state.abs_sample + shift.repeat_interleave(n_ch))
+    return iq, tables, ptables, state, params
 
 
 @pytest.mark.parametrize("interp_taps", [True, False])

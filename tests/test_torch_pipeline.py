@@ -234,27 +234,3 @@ def test_drop_takes_effect_one_superblock_late():
     assert port.active_until[1] == 800
     assert np.all(port.blksize[1, :800] > 0)
     assert not port.blksize[1, 800:].any()
-
-
-def test_superblock_profile_reports_the_pipelined_loop():
-    """``profile_superblock`` stages into a reused buffer beside a fresh
-    one and times ``track`` over 2N and N superblocks for its steady-state
-    host milliseconds per superblock; the card's busy share exists only on
-    a card, and a bank of several blocks (which ``track`` does not run),
-    or N = 0, has no pipelined figure."""
-    from cusdr_tpu_torch.runtime import profiling
-    cfg = t_get_config("gps_l1ca", sampling_freq=2.048e6, if_freq=7000.0)
-    p = profiling.profile_superblock(cfg, "cpu", n_epochs=4, repeats=2,
-                                     n_superblocks=3)
-    for name in ("stage_ms", "stage_ring_ms", "h2d_ms", "h2d_ring_ms"):
-        assert len(p[name]) == 2 and min(p[name]) >= 0.0
-    assert p["superblocks"] == 6 and p["pipelined_ms"] is not None
-    assert p["busy_share_traced"] is None
-    assert "track pipelined" in profiling.format_superblock_profile(p)
-    p = profiling.profile_superblock(cfg, "cpu", n_epochs=3, n_blocks=2,
-                                     repeats=1)
-    assert p["pipelined_ms"] is None and p["superblocks"] is None
-    assert "track pipelined" not in profiling.format_superblock_profile(p)
-    p = profiling.profile_superblock(cfg, "cpu", n_epochs=3, repeats=1,
-                                     n_superblocks=0)
-    assert p["pipelined_ms"] is None

@@ -27,13 +27,16 @@ their sync words, the secondary code on every symbol) opens it inside
 
 Also ``StageTimer``'s span collection and report, a span's own seconds with
 no profiler, and the CLI's ``--profile``: one trace of the whole run with
-every stage's spans, and their totals printed under their stages.
+every stage's spans, and their totals printed under their stages.  And the
+layering: ``runtime/profiling.py``, which every layer that opens spans
+imports, loads no tracking, acquisition, signals or ops module itself.
 """
 
 import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -316,3 +319,21 @@ def test_counters_reach_timings_only_under_a_profiler():
     profiling.count("trk_lock_drops", 5)          # outside every stage
     assert timer.stages["tracking"].counts == {"trk_lock_drops": 3}
     assert timer.seconds()["trk_lock_drops"] == 3
+
+
+def test_profiling_imports_no_layer_above_it():
+    """In a fresh interpreter ``runtime.profiling`` loads, of the package,
+    only what the package's ``__init__`` loads (``config``) and
+    ``runtime`` itself."""
+    code = ("import sys, cusdr_tpu_torch.runtime.profiling\n"
+            "print(*sorted(m for m in sys.modules\n"
+            "              if m.startswith('cusdr_tpu_torch.')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0, out.stderr[-2000:]
+    loaded = out.stdout.split()
+    assert "cusdr_tpu_torch.runtime.profiling" in loaded
+    above = [m for m in loaded if m.split(".")[1] in
+             ("tracking", "acquisition", "signals", "ops")]
+    assert above == []

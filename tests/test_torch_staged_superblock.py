@@ -19,9 +19,8 @@ here, without one:
   for bit (the two kernels' plain versions compute the same function);
 - the library and its launch counts are registered, and the wrapper refuses
   CPU tensors;
-- the per-superblock profile takes the staged kernel, and the eager
-  yardstick of ``track_time_parallel`` (``epoch_loop``) computes what its
-  default path does.
+- the eager yardstick of ``track_time_parallel`` (``epoch_loop``) computes
+  what its default path does.
 """
 
 import dataclasses
@@ -36,7 +35,6 @@ from cusdr_tpu_torch.config import PRESETS
 from cusdr_tpu_torch import get_config as t_get_config
 from cusdr_tpu_torch.ops import correlator as tcorr
 from cusdr_tpu_torch.parallel import timeblocks
-from cusdr_tpu_torch.runtime import profiling
 from cusdr_tpu_torch.signals.defs import get_signal as t_get_signal
 from cusdr_tpu_torch.tracking import engine as teng
 
@@ -241,20 +239,6 @@ def test_staged_superblock_kernel_is_registered_and_takes_cuda_tensors_only():
             iq, sb_start, tables, None, *teng.pack_state(state), end,
             n_epochs, params, up_margin=teng.UP_MARGIN)
     assert tcorr.LAUNCHES == before
-
-
-def test_staged_superblock_profile_runs_on_the_cpu(capsys):
-    cfg = t_get_config("gps_l1ca", sampling_freq=2.048e6, if_freq=7000.0)
-    p = profiling.profile_superblock(cfg, "cpu", n_epochs=3, n_blocks=2,
-                                     repeats=1, fetch_in_kernel=False)
-    assert p["rows"] == 2 * cfg.num_channels and not p["fetch_in_kernel"]
-    assert p["device_ms"] is None and p["launches"] is None
-    assert ", staged, " in profiling.format_superblock_profile(p)
-    assert profiling.main(["--device", "cpu", "--epochs", "2",
-                           "--staged"]) == 0
-    out = capsys.readouterr().out.strip().splitlines()
-    assert len(out) == 1 and out[0].startswith("gps_l1ca, 12 rows x 2 "
-                                               "epochs, staged")
 
 
 @pytest.mark.parametrize("fetch_in_kernel", [True, False])

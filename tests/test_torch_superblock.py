@@ -16,8 +16,7 @@ kernel's plain version.  Here, on the CPU:
   refuses CPU tensors;
 - ``track``'s drain raises when a drained window lay outside its
   superblock's buffer;
-- the entry points default to the card and raise where there is none;
-- the per-superblock profile runs (host times only on the CPU).
+- the entry points default to the card and raise where there is none.
 
 Tolerances against the reference, as in tests/test_torch_correlator.py:
 sums ``atol 2e-4·(max|ref| + 1)`` (f32 summation order), loop state ``rtol
@@ -39,7 +38,6 @@ from cusdr_tpu_torch import get_config as t_get_config
 from cusdr_tpu_torch.__main__ import main as cli_main
 from cusdr_tpu_torch.ops import correlator as tcorr
 from cusdr_tpu_torch.receiver import Receiver
-from cusdr_tpu_torch.runtime import profiling
 from cusdr_tpu_torch.signals.defs import get_signal as t_get_signal
 from cusdr_tpu_torch.tracking import engine as teng
 
@@ -254,26 +252,3 @@ def test_entry_points_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="(?i)cuda"):
         cli_main(["run", "--file", str(path), "--fs", "2.048e6"])
     assert Receiver(t_get_config("gps_l1ca"), "cpu").device.type == "cpu"
-
-
-def test_superblock_profile_runs_on_the_cpu():
-    cfg = t_get_config("gps_l1ca", sampling_freq=2.048e6, if_freq=7000.0)
-    p = profiling.profile_superblock(cfg, "cpu", n_epochs=4, repeats=2)
-    assert p["rows"] == cfg.num_channels and p["epochs"] == 4
-    for name in ("stage_ms", "h2d_ms", "track_ms", "drain_ms"):
-        assert len(p[name]) == 2 and min(p[name]) >= 0.0
-    # device numbers exist only on a card
-    assert p["launches"] is None and p["device_ms"] is None
-    assert p["idle_share"] is None
-    assert "not measured" in profiling.format_superblock_profile(p)
-    e = profiling.profile_epochs(cfg, "cpu", n_epochs=3, repeats=1)
-    assert e["launches_per_epoch"] is None
-    assert "not measured" in profiling.format_profile(e)
-
-
-def test_profiling_tool_prints_one_line(capsys):
-    assert profiling.main(["--device", "cpu", "--signal", "gal_e5a",
-                           "--epochs", "2"]) == 0
-    out = capsys.readouterr().out.strip().splitlines()
-    assert len(out) == 1
-    assert out[0].startswith("gal_e5a, 12 rows x 2 epochs, fetch")
