@@ -16,6 +16,10 @@ searches, as in the reference:
     products stay within ``SHIFT_BATCH_BYTES`` on the device, and the best
     shift is kept as the reference's scan keeps it.
 
+The conjugate code spectra they correlate with depend on no record: they
+are built by numpy once per signal, PRN list and rate and kept on the
+device (``code_spectra``).
+
 Then, for a long pilot (L2C CL), the search over its code periods (a
 matmul of the hypotheses' replicas against the wiped segment), and the
 fine stage's bit-edge, secondary-code, coherent and envelope hypothesis
@@ -75,6 +79,39 @@ class AcquisitionResult:
 # --------------------------------------------------------------------------
 # Coarse stage
 # --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=4)
+def _code_spectra(comps, code_prns, epc: int, chip_rate_hz: float,
+                  fs: float, spc: int, n_coh: int, nfft: int, device):
+    """The conjugate code spectra, complex64 [len(code_prns), len(comps),
+    nfft] on ``device``: ``comps[c](code_prns[i])`` sampled for one code
+    period, tiled ``n_coh`` times, zero-padded and transformed by numpy.
+    Built and uploaded once per key, never written.  An entry holds 0.26
+    MB (glo_l1) to 520 MB (bds_b1c: 62 PRNs x 2 components x 524 288),
+    16.8 MB for gps_l1ca's 32 PRNs at 18 Msps: four entries hold the
+    signals one process runs together (``run_multi``) in 2.1 GB at most."""
+    cfc = np.empty((len(code_prns), len(comps), nfft), np.complex64)
+    for i, prn in enumerate(code_prns):
+        for c, fn in enumerate(comps):
+            table = sample_code(fn(prn), epc, chip_rate_hz, fs, spc)
+            padded = np.zeros(nfft, np.float32)
+            padded[:n_coh * spc] = np.tile(table.astype(np.float32), n_coh)
+            cfc[i, c] = np.conj(np.fft.fft(padded))
+    return torch.from_numpy(cfc).to(device)
+
+
+def code_spectra(sig: SignalDef, prns, fs: float, spc: int, n_coh: int,
+                 nfft: int, device):
+    """(spectra, hit): ``_code_spectra`` of the signal's acquisition
+    components at ``prns`` (an FDMA signal has one code for every channel:
+    code(0)), and whether they came from the cache."""
+    code_prns = (0,) if sig.fdma else tuple(int(p) for p in prns)
+    hits = _code_spectra.cache_info().hits
+    cfc = _code_spectra(tuple(sig.acq_code_fns()), code_prns,
+                        sig.elements_per_chip, sig.chip_rate_hz, fs, spc,
+                        n_coh, nfft, torch.device(device))
+    return cfc, _code_spectra.cache_info().hits > hits
+
 
 def _mixed_fft(slabs, f_grid, ts):
     """FFT of the Doppler-mixed signal: complex64 [n_bins, n_noncoh, nfft].
@@ -501,20 +538,11 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
         slabs[:, :win_len] = np.asarray(samples)[idx]
 
         # ---- conjugate code spectra [n_prn, n_comp, nfft] -------------------
-        # an FDMA signal has one code for every channel: fn(0)
-        comps = sig.acq_code_fns()
-        n_comp = len(comps)
+        cfc_d, hit = code_spectra(sig, prns, fs, spc, n_coh, nfft, device)
+        # 1 where the spectra came from the cache, 0 where they were built
+        count("acq_codes_hit", int(hit))
+        n_comp = cfc_d.shape[1]
         weights = np.asarray(sig.acq_weights[:n_comp], np.float32)
-        code_prns = prns[:1] if sig.fdma else prns
-        cfc = np.empty((len(code_prns), n_comp, nfft), np.complex64)
-        for i, prn in enumerate(code_prns):
-            for c, fn in enumerate(comps):
-                table = sample_code(fn(0 if sig.fdma else int(prn)),
-                                    sig.elements_per_chip, sig.chip_rate_hz,
-                                    fs, spc)
-                padded = np.zeros(nfft, np.float32)
-                padded[:spc_c] = np.tile(table.astype(np.float32), n_coh)
-                cfc[i, c] = np.conj(np.fft.fft(padded))
 
         # ---- Doppler grid (descending) --------------------------------------
         band, step = cfg.acq_search_band, cfg.acq_search_step
@@ -523,7 +551,6 @@ def acquire(cfg, sig: SignalDef, samples: np.ndarray, device,
                 - step * np.arange(n_bins)).astype(np.float32)
         excl = int(round(fs / sig.chip_rate_hz)) + 1   # ±1 chip exclusion
         slabs_d = torch.from_numpy(slabs).to(device)
-        cfc_d = torch.from_numpy(cfc).to(device)
         weights_d = torch.from_numpy(weights).to(device)
         kw = dict(n_comp=n_comp, search_len=search_len, excl_samples=excl,
                   period=spc)

@@ -11,7 +11,12 @@ secondary), and the FDMA search of glo_l1 (one shared code, a carrier grid
 per frequency channel), at the reduced rates of the reference's own tests.
 The three coarse kernels the CDMA scenes do not reach, the FDMA search,
 the circular-shift search (in batches of shifts) and the long-pilot period
-search, are held to the reference's on small random inputs."""
+search, are held to the reference's on small random inputs.
+
+The conjugate code spectra, cached on the device per signal, PRN list and
+rate: bit for bit the spectra the per-call loop built, the same results
+from the cache as after a clear, never written by a search, and a new
+entry for another PRN list or a resampled rate."""
 
 import numpy as np
 import pytest
@@ -391,3 +396,159 @@ def test_fine_search_refuses_what_it_cannot_take():
         for fn in (tpcps.fine_search, tpcps.fine_search_plain):
             with pytest.raises(ValueError):
                 fn(**dict(good, **b), **kw)
+
+
+# --------------------------------------------------------------------------
+# The conjugate code spectra, cached on the device per signal, PRNs and rate
+# --------------------------------------------------------------------------
+
+def _acq_shape(cfg, sig):
+    """(fs, samples per code, coherent periods, FFT length) as ``acquire``
+    forms them."""
+    spc = cfg.samples_per_code
+    n_coh = max(1, int(round(cfg.acq_coh_time
+                             / max(sig.code_period_ms, 1e-9))))
+    return (cfg.sampling_freq, spc, n_coh,
+            1 << (n_coh * spc + spc - 1).bit_length())
+
+
+def _spectra_as_built_per_call(cfg, sig, prns):
+    """The spectra as ``acquire`` built them on every call before they were
+    cached: the same numpy calls in the same order."""
+    fs, spc, n_coh, nfft = _acq_shape(cfg, sig)
+    comps = sig.acq_code_fns()
+    code_prns = prns[:1] if sig.fdma else prns
+    cfc = np.empty((len(code_prns), len(comps), nfft), np.complex64)
+    for i, prn in enumerate(code_prns):
+        for c, fn in enumerate(comps):
+            table = t_sample_code(fn(0 if sig.fdma else int(prn)),
+                                  sig.elements_per_chip, sig.chip_rate_hz,
+                                  fs, spc)
+            padded = np.zeros(nfft, np.float32)
+            padded[:n_coh * spc] = np.tile(table.astype(np.float32), n_coh)
+            cfc[i, c] = np.conj(np.fft.fft(padded))
+    return cfc
+
+
+# the benchmark's two configurations at their rates, an FDMA preset, and the
+# circular-shift search's preset at a reduced rate
+SPECTRA_CASES = {"gps_l1ca": {}, "gal_e5a": {}, "glo_l1": {},
+                 "gps_l2c": dict(sampling_freq=2.048e6, if_freq=7000.0)}
+
+
+@pytest.mark.parametrize("name", sorted(SPECTRA_CASES))
+def test_cached_spectra_are_the_per_call_spectra_bit_for_bit(name):
+    """The cached spectra, built and then taken from the cache, equal bit
+    for bit those the per-call loop built, at the preset's PRN list."""
+    cfg = t_get_config(name, **SPECTRA_CASES[name])
+    sig = t_get_signal(name)
+    prns = np.asarray(cfg.acq_satellite_list)
+    want = _spectra_as_built_per_call(cfg, sig, prns)
+    tpcps._code_spectra.cache_clear()
+    for hit_expected in (False, True):
+        got, hit = tpcps.code_spectra(sig, prns, *_acq_shape(cfg, sig),
+                                      "cpu")
+        assert hit is hit_expected
+        assert got.dtype == torch.complex64 and got.shape == want.shape
+        assert np.array_equal(got.numpy().view(np.uint64),
+                              want.view(np.uint64))
+    tpcps._code_spectra.cache_clear()
+
+
+CACHE_OVER = dict(sampling_freq=2.048e6, if_freq=7000.0,
+                  acq_satellite_list=(3, 7, 11, 19, 24, 27))
+
+
+@pytest.fixture(scope="module")
+def two_records():
+    """Two 80 ms gps_l1ca records at 2.048 Msps with different SVs, as
+    ``acquire`` takes them."""
+    cfg = t_get_config("gps_l1ca", **CACHE_OVER)
+    out = []
+    for seed, svs in ((4, [SynthSV(prn=3, code_phase=101.0, doppler_hz=2750.0,
+                                   cn0_dbhz=47),
+                           SynthSV(prn=19, code_phase=777.0,
+                                   doppler_hz=400.0, cn0_dbhz=46)]),
+                      (5, [SynthSV(prn=11, code_phase=1500.0,
+                                   doppler_hz=-3300.0, cn0_dbhz=47),
+                           SynthSV(prn=27, code_phase=2000.0,
+                                   doppler_hz=-150.0, cn0_dbhz=48)])):
+        iq = quantize_iq_int8(synthesize_if(
+            get_config("gps_l1ca", **CACHE_OVER), get_signal("gps_l1ca"),
+            svs, num_ms=80, seed=seed))
+        out.append(iq[0::2].astype(np.float32)
+                   + 1j * iq[1::2].astype(np.float32))
+    return cfg, out
+
+
+ACQ_FIELDS = ("prns", "detected", "code_phase", "carr_freq", "coarse_freq",
+              "peak_metric", "pilot_phase")
+
+
+def test_acquire_from_the_cache_equals_acquire_after_a_clear(two_records):
+    """Each of two records acquired after the other (its spectra from the
+    cache) gives the detections, code phases, carriers and metrics it
+    gives as the first call after the cache is cleared (spectra built)."""
+    cfg, recs = two_records
+    sig = t_get_signal("gps_l1ca")
+    tpcps._code_spectra.cache_clear()
+    first = [t_acquire(cfg, sig, x, "cpu") for x in recs]
+    tpcps._code_spectra.cache_clear()
+    second = [t_acquire(cfg, sig, x, "cpu") for x in recs[::-1]][::-1]
+    info = tpcps._code_spectra.cache_info()
+    assert (info.hits, info.misses) == (1, 1)
+    for a, b in zip(first, second):
+        assert a.detected.sum() >= 2
+        for name in ACQ_FIELDS:
+            assert np.array_equal(getattr(a, name), getattr(b, name)), name
+
+
+def test_acquire_leaves_the_cached_spectra_unwritten(two_records):
+    """The entry ``acquire`` made is the one ``code_spectra`` returns for
+    the same key, and a second ``acquire``, which reads it, leaves its
+    version counter where it was."""
+    cfg, recs = two_records
+    sig = t_get_signal("gps_l1ca")
+    prns = np.asarray(cfg.acq_satellite_list)
+    tpcps._code_spectra.cache_clear()
+    t_acquire(cfg, sig, recs[0], "cpu")
+    cfc, hit = tpcps.code_spectra(sig, prns, *_acq_shape(cfg, sig), "cpu")
+    assert hit
+    version = cfc._version
+    t_acquire(cfg, sig, recs[1], "cpu")
+    info = tpcps._code_spectra.cache_info()
+    assert (info.hits, info.misses, info.currsize) == (2, 1, 1)
+    again, _ = tpcps.code_spectra(sig, prns, *_acq_shape(cfg, sig), "cpu")
+    assert again is cfc and cfc._version == version
+
+
+def test_another_prn_list_or_a_resampled_rate_is_a_new_entry():
+    """Another PRN list misses, the first one again hits; ``acquire`` on a
+    record the bandpass resampler decimates (gps_l1ca at 18 Msps to 2.586
+    Msps) keys its entry on the resampled rate: a miss, then a hit for the
+    resampled shape, with spectra of its own length."""
+    sig = t_get_signal("gps_l1ca")
+    cfg = t_get_config("gps_l1ca", **CACHE_OVER)
+    shape = _acq_shape(cfg, sig)
+    tpcps._code_spectra.cache_clear()
+    a, hit_a = tpcps.code_spectra(sig, [3, 7, 11], *shape, "cpu")
+    b, hit_b = tpcps.code_spectra(sig, [3, 7, 12], *shape, "cpu")
+    a2, hit_a2 = tpcps.code_spectra(sig, [3, 7, 11], *shape, "cpu")
+    assert (hit_a, hit_b, hit_a2) == (False, False, True)
+    assert a2 is a and not torch.equal(a, b)
+    assert torch.equal(a[:2], b[:2])
+
+    hi = t_get_config("gps_l1ca", resampling_flag=True)
+    rng = np.random.default_rng(6)
+    x = (rng.normal(size=900_000) + 1j * rng.normal(size=900_000)
+         ).astype(np.complex64)
+    before = tpcps._code_spectra.cache_info()
+    t_acquire(hi, sig, x, "cpu", prn_list=[3, 7, 11])
+    after = tpcps._code_spectra.cache_info()
+    assert (after.hits, after.misses) == (before.hits, before.misses + 1)
+    _, lo, _ = maybe_resample(np.zeros(40_000, np.complex64), hi)
+    assert lo.sampling_freq == 2.586e6
+    c, hit_c = tpcps.code_spectra(sig, [3, 7, 11], *_acq_shape(lo, sig),
+                                  "cpu")
+    assert hit_c and c.shape[-1] != a.shape[-1]
+    tpcps._code_spectra.cache_clear()

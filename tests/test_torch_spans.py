@@ -17,8 +17,10 @@ ms, run by ``Receiver.run`` once with no profiler and once under
 - the results (acquisition, every ``TrackResults`` field, fixes) are equal
   element for element with tracing on and off;
 - under the profiler ``timings`` also carries the lock gate's count of
-  dropped channels, ``trk_lock_drops`` (0: every SV holds lock), and the
-  fine stage's count of the detected PRNs it searched, ``acq_fine_rows``.
+  dropped channels, ``trk_lock_drops`` (0: every SV holds lock), the
+  fine stage's count of the detected PRNs it searched, ``acq_fine_rows``,
+  and ``acq_codes_hit``: 1, since the untraced run before it built the
+  code spectra of the same key.
 
 ``nav.fec``: navigation's decode of an F/NAV prompt stream (pages with
 their sync words, the secondary code on every symbol) opens it inside
@@ -44,9 +46,10 @@ import pytest
 import torch
 
 from cusdr_tpu_torch import get_config
+from cusdr_tpu_torch.acquisition import pcps
 from cusdr_tpu_torch.io.synth import SynthSV, quantize_iq_int8, synthesize_if
 from cusdr_tpu_torch.nav import galileo_nav
-from cusdr_tpu_torch.receiver import Receiver, nav_solve
+from cusdr_tpu_torch.receiver import Receiver, _acquire_record, nav_solve
 from cusdr_tpu_torch.runtime import profiling
 from cusdr_tpu_torch.runtime.profiling import StageTimer, span
 from cusdr_tpu_torch.signals import codes
@@ -152,8 +155,10 @@ def test_totals_reach_timings_and_sum_within_their_stage(runs):
     _, on, _ = runs
     t = on.timings
     want = {f"{s}_s" for s in STAGES} | {_key(n) for n in REACHED}
-    assert set(t) == want | {"trk_lock_drops", "acq_fine_rows"}
+    assert set(t) == want | {"trk_lock_drops", "acq_fine_rows",
+                             "acq_codes_hit"}
     assert t.pop("trk_lock_drops") == 0
+    assert t.pop("acq_codes_hit") == 1
     assert t.pop("acq_fine_rows") == on.acq.detected.sum() >= 3
     assert all(v >= 0.0 for v in t.values())
     for stage, names in SUB_SPANS.items():
@@ -319,6 +324,29 @@ def test_counters_reach_timings_only_under_a_profiler():
     profiling.count("trk_lock_drops", 5)          # outside every stage
     assert timer.stages["tracking"].counts == {"trk_lock_drops": 3}
     assert timer.seconds()["trk_lock_drops"] == 3
+
+
+def test_acq_codes_hit_reads_the_cache_only_under_a_profiler(record):
+    """The record's acquisition in an "acquisition" stage: under a
+    profiler ``acq_codes_hit`` reads 0 on the first record of a key (the
+    spectra built) and 1 on the next (taken from the cache); with no
+    profiler it is absent from the stage's timings."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, iq = record
+    sig = get_signal("gps_l1ca")
+
+    def acquisition():
+        timer = StageTimer()
+        with timer.stage("acquisition"):
+            _acquire_record(cfg, sig, iq, torch.device("cpu"))
+        return timer.seconds()
+
+    pcps._code_spectra.cache_clear()
+    assert set(acquisition()) == {"acquisition_s"}
+    pcps._code_spectra.cache_clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        reads = [acquisition()["acq_codes_hit"] for _ in range(2)]
+    assert reads == [0, 1]
 
 
 def test_profiling_imports_no_layer_above_it():
