@@ -6,9 +6,12 @@ detected), ``trk_chan_diff`` (PRNs tracked, and each channel's first epoch
 against the acquisition that started it), ``trk_geom_diff`` (samples per
 epoch and the next epoch's first sample), ``trk_lock_diff`` (channels the
 program keeps to the end against those whose recomputed prompt still
-holds code and carrier phase lock at their last epochs), ``nav_diff`` (channels whose decode is missing where the record
-holds a frame, or whose ephemeris or TOW differ from what was transmitted)
-and ``pvt_count_diff`` (measurement epochs with a fix on one side only).
+holds code and carrier phase lock at their last epochs), ``nav_diff``
+(channels whose decode is missing where the channel's own span, to its
+``active_until``, holds a frame, whose ephemeris or TOW differ from what
+was transmitted, or that decode from a span too short to hold a whole
+message) and ``pvt_count_diff`` (measurement epochs with a fix on one side
+only).
 The others are gaps: ``acq_gap`` (relative, of the GLRT metric of every
 PRN, and the share of the reference's peak lost at the program's code
 phase and fine carrier), ``trk_sum_gap`` (correlator sums, relative to the
@@ -251,11 +254,12 @@ def check_record(iq: np.ndarray, prog: dict, sky, s: dict, g: dict, codes,
         for c, prn in enumerate(trk["prns"]):
             eph, start, tow = codec.decode(trk["i_p"][c], ms_per_bit)
             truth = sky.eph_by_prn.get(int(prn))
-            if truth is None or n_ep < codec.NEVER:
+            span = int(trk["active_until"][c])
+            if truth is None or span < codec.NEVER:
                 nav_diff += int(eph is not None)
                 continue
             if eph is None:
-                nav_diff += int(n_ep >= codec.ALWAYS)
+                nav_diff += int(span >= codec.ALWAYS)
                 continue
             sent = codec.broadcast(truth, tow)
             same = all(eph.get(k) == v for k, v in sent.items()

@@ -21,7 +21,8 @@ def test_the_counter_metric_is_declared():
     assert (m["source"], m["unit"], m["better"], m["moves"], m["layer"]) == (
         "program_counter", "%", "higher", "realtime_x",
         "acquisition (acquisition/pcps.py)")
-    assert m["workloads"] == ["l1ca_60s", "l1ca_snap4s", "e5a_snap4s"]
+    assert m["workloads"] == ["l1ca_60s", "l1ca_snap4s", "e5a_snap4s",
+                              "e5a_60s"]
 
 
 def test_the_reader_returns_none_where_absent():

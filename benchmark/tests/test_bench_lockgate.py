@@ -51,21 +51,44 @@ EDGE_TRAFFIC = {"config": "tinye5a", "sky": "edge", "n_svs": 4,
 MISS_SEED = 9
 
 
+# the limits of the gal_e5a configurations' comparison (PERF.md section 2)
+LIMITS = {"acq_set_diff": 0, "acq_gap": 1e-4, "trk_chan_diff": 0,
+          "trk_geom_diff": 0, "trk_sum_gap": 2e-4, "trk_carr_gap_hz": 5e-3,
+          "trk_code_gap_hz": 2e-3, "trk_phase_gap": 1e-6,
+          "trk_lock_diff": 0, "nav_diff": 0, "pvt_count_diff": 0,
+          "pvt_gap_m": 1e-3, "pvt_truth_m": 2e4}
+
+
 def test_the_configuration_states_the_preset():
+    import dataclasses
     from benchmark.harness import cells, program
+    from benchmark.reference.check import NAMES
     from cusdr_tpu_torch import get_config
+    from cusdr_tpu_torch.signals.defs import get_signal
     cell = cells.find_cell(ROOT, "e5a_snap4s")
     assert cell.config_name == "gal_e5a_lockgate" and cell.chips == 1
     rx = program.receiver(cell.config, "cpu")
-    assert rx.cfg == get_config("gal_e5a")
+    preset = get_config("gal_e5a")
+    assert rx.cfg == preset
     assert rx.cfg.carrier_lock_test == "in_phase_share"
-    old = json.loads((BENCH / "configs/gal_e5a.json").read_text())
-    new = dict(cell.config)
-    assert new.pop("lock_gate")
-    assert new["settings"].pop("carrier_lock_test") == "in_phase_share"
-    assert new == old
-    assert cell.limits == json.loads(
-        (BENCH / "reference/limits/gal_e5a.json").read_text())
+    assert cell.config["preset"] == "gal_e5a" and cell.config["reduced"] == []
+    assert "in_phase_share" in cell.config["lock_gate"]
+    settings = dict(cell.config["settings"])
+    assert settings.pop("cno") == dataclasses.asdict(preset.cno)
+    assert set(settings) == {f.name for f in dataclasses.fields(preset)} - {
+        "cno", "true_position", "use_pallas"}
+    assert settings == {k: list(v) if isinstance(v, tuple) else v
+                        for k, v in ((k, getattr(preset, k))
+                                     for k in settings)}
+    sig, g = get_signal("gal_e5a"), cell.config["signal"]
+    assert g == {"codes": "gal_e5a", "carrier_freq_hz": sig.carrier_freq_hz,
+                 "chip_rate_hz": sig.chip_rate_hz,
+                 "code_length_chips": sig.code_length_chips,
+                 "nav_symbol_ms": sig.nav_symbol_ms,
+                 "pilot": sig.pilot_code is not None,
+                 "nav_codec": sig.nav_codec}
+    assert set(cell.limits) == set(NAMES)
+    assert cell.limits == LIMITS
 
 
 @pytest.mark.parametrize("name", ["nav_fec_s", "trk_lock_drops"])

@@ -22,8 +22,8 @@ def test_the_span_metrics_are_declared():
         m = per_layer[name]
         assert (m["source"], m["unit"], m["better"], m["moves"]) == (
             "program_span", "s", "lower", "realtime_x")
-        assert m.get("workloads") == (["l1ca_60s"] if name in LONG
-                                      else None)
+        assert m.get("workloads") == (
+            ["l1ca_60s", "e5a_60s"] if name in LONG else None)
 
 
 def test_a_traced_run_reads_the_spans_and_an_untraced_run_none(tmp_path):
